@@ -1,11 +1,13 @@
 """Drive the PyTorch/CUDA port (``splatloc_tpu_torch``) on one NVIDIA GPU.
 
-The quickest proof that the port starts on the card. It serves the forward
-render of a Gaussian map through the entry point a user calls
-(``raster.render``), at the size of the JAX package's bench scene: 100,000
-Gaussians with C = 4 channels (RGB plus kp_score), SH degree 0, seen
-through the Replica calibration (640x480, configs/replica/base_config.yaml).
-Phases:
+The quickest proof that the port starts on the card. It drives the port's
+two main paths through the entry points a user calls: serving the forward
+render of a Gaussian map (``raster.render``) at the size of the JAX
+package's bench scene, 100,000 Gaussians with C = 4 channels (RGB plus
+kp_score), SH degree 0, seen through the Replica calibration (640x480,
+configs/replica/base_config.yaml); and the mapping trainer
+(``train.mapping.MappingTrainer``) on that configuration, at its full width
+and its CLI's capacity of 2^19 Gaussians. Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
              and ``nvidia-smi``'s name and power limit
@@ -16,14 +18,33 @@ Phases:
 4. serve     renders four query poses (the identity and three se3_exp
              perturbations) with every kernel's launch count set to 0 just
              before and read just after
-5. kernels   runs each kernel and its plain PyTorch version on the card on
-             the inputs the main path gives it, and fails past the stated
+5. kernels   runs the forward walk and its plain PyTorch version on the card
+             on the inputs the main path gives it, and fails past the stated
              tolerances
-6. timing    CUDA-event times of each kernel and its plain version, of a
-             whole render, and a torch.profiler breakdown of one render
+6. timing    CUDA-event times of the forward walk and its plain version, of
+             a whole render, and a torch.profiler breakdown of one render
              (device busy time, idle share, the costliest device ops)
 7. check     a small render on the card against the port's CPU path (the
              plain versions, which the CPU tests hold to the JAX package)
+8. backward  the backward walk (f32 and bf16 slabs) and the per-Gaussian
+             reduction against their plain versions at full width, on view
+             0 with a seeded cotangent and a slab that held NaN before the
+             walk wrote it; their times, the reduction's library yardstick
+             (torch.segment_reduce) and each kernel's bound
+9. train     MappingTrainer on the Replica configuration: six keyframes
+             rendered along a short path from a room of 100,000 flat splats
+             on five walls (the bench scene is a random volume, whose
+             rendered depth no depth sensor would report), add_keyframe
+             then ten mapping iterations each (a densify at iteration 50),
+             then 20 color-refinement iterations, with the launch counts set
+             to 0 just before and read just after; the three kernels
+             against their plain versions on the trainer's own inputs (the
+             last keyframe's view of the trained scene under the caps and
+             tiers the trainer ended with); a checkpoint saved and loaded
+             back; step times and a torch.profiler breakdown of one mapping
+             step
+10. repeat   two trainers with the same seed (two keyframes, ten
+             iterations) give bit-identical scenes
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -34,6 +55,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed 0]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,16 +67,26 @@ import numpy as np
 import torch
 
 from splatloc_tpu_torch import build
+from splatloc_tpu_torch.cli.config import load_config
 from splatloc_tpu_torch.core import sh, transforms
 from splatloc_tpu_torch.core.camera import Camera
 from splatloc_tpu_torch.raster import binning, hopper_raster, pairs, project
 from splatloc_tpu_torch.raster import RasterConfig, render
 from splatloc_tpu_torch.scene import ply
 from splatloc_tpu_torch.scene.gaussians import GaussianScene
+from splatloc_tpu_torch.train import checkpoint
+from splatloc_tpu_torch.train.mapping import MappingConfig, MappingTrainer
 
 WIDTH, HEIGHT = 640, 480
 N_GAUSSIANS = 100_000
 N_VIEWS = 4
+REPO = Path(__file__).resolve().parent
+REPLICA_CONFIG = REPO / "configs" / "replica" / "base_config.yaml"
+# the mapping CLI's default capacity (cli/train_gaussians.py:92)
+TRAIN_CAPACITY = 2 ** 19
+N_KEYFRAMES = 6
+MAP_ITERS = 10          # mapping_itr_num per keyframe (Replica config)
+REFINE_ITERS = 20
 # NVIDIA H100 SXM data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -69,6 +101,15 @@ OPS_PER_EVAL = 16
 # moves it by at most ~alpha * t_eps ~ 1e-4 (depths reach 8 m, so 8x that).
 TOL = {"channels_max": 2e-4, "depth_max": 2e-3, "mean": 1e-6,
        "t_final_max": 1e-5, "n_contrib_equal": 0.999}
+# backward walk against its plain version, relative L2 per gradient row:
+# the kernel carries T and the later-pairs sum s by direct products and
+# sums, the plain version in log space by triangular products, so the
+# per-pair grads agree to float32 rounding (f32 slab) or to one bf16
+# rounding of each value (bf16 slab)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the reduction against its plain version: the same float32 values summed
+# in another order (a run in order vs a Hillis-Steele scan)
+SEG_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -113,6 +154,47 @@ def make_scene(n: int, seed: int, device) -> GaussianScene:
         xyz=t(xyz), f_dc=sh.rgb_to_sh(t(colors[:, None, :3])),
         f_rest=torch.zeros((n, 0, 3), device=device), scaling=t(scaling),
         rotation=t(quats), opacity=t(np.log(op / (1 - op)).astype(np.float32)),
+        marker=torch.zeros((n, 1), device=device), kp_score=t(colors[:, 3:]),
+        alive=torch.ones((n,), dtype=torch.bool, device=device), sh_degree=0)
+
+
+def make_room_scene(n: int, seed: int, device) -> GaussianScene:
+    """A room for the trainer's keyframes: ``n`` flat splats (3-5 cm across,
+    2.5 mm thick) on the back wall, side walls, floor and ceiling of a
+    6 x 4 x 8 m box, the camera inside at the origin facing the back wall,
+    opacities in [0.6, 0.95], channels in [0, 1]. Its rendered depth is a
+    surface's, as a depth sensor reports it; the bench scene's random
+    volume renders a depth that jumps by metres between neighbouring
+    pixels, so the keyframe initialisation would size its splats tens of
+    tiles wide and overflow the binning's tile caps."""
+    rng = np.random.default_rng(seed + 3)
+    # (axis of the normal, its coordinate, ranges of the other two axes)
+    walls = [(2, 8.0, (-3, 3), (-2, 2)),
+             (0, -3.0, (-2, 2), (0, 8)), (0, 3.0, (-2, 2), (0, 8)),
+             (1, -2.0, (-3, 3), (0, 8)), (1, 2.0, (-3, 3), (0, 8))]
+    areas = np.array([(a[1] - a[0]) * (b[1] - b[0])
+                      for _, _, a, b in walls], float)
+    which = rng.choice(len(walls), size=n, p=areas / areas.sum())
+    xyz = np.zeros((n, 3), np.float32)
+    scaling = rng.uniform(-4.0, -3.0, (n, 3)).astype(np.float32)
+    for i, (k, c, r1, r2) in enumerate(walls):
+        m = which == i
+        a, b = [j for j in range(3) if j != k]
+        xyz[m, k] = c
+        xyz[m, a] = rng.uniform(*r1, m.sum())
+        xyz[m, b] = rng.uniform(*r2, m.sum())
+        scaling[m, k] = -6.0
+    op = rng.uniform(0.6, 0.95, (n, 1))
+    colors = rng.uniform(0, 1, (n, 4)).astype(np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return GaussianScene(
+        xyz=t(xyz), f_dc=sh.rgb_to_sh(t(colors[:, None, :3])),
+        f_rest=torch.zeros((n, 0, 3), device=device), scaling=t(scaling),
+        rotation=t(np.tile(np.array([[1.0, 0, 0, 0]], np.float32), (n, 1))),
+        opacity=t(np.log(op / (1 - op)).astype(np.float32)),
         marker=torch.zeros((n, 1), device=device), kp_score=t(colors[:, 3:]),
         alive=torch.ones((n,), dtype=torch.bool, device=device), sh_degree=0)
 
@@ -239,8 +321,9 @@ def check_render(out: dict, width: int, height: int) -> None:
 
 
 def walk_inputs(scene, cam, cfg):
-    """The forward walk's inputs (gpair, starts, counts, origins) and the
-    channel count for one view, built as ``render`` builds them."""
+    """The forward walk's inputs (gpair, starts, counts, origins), the
+    channel count and the build_pairs dict for one view, built as
+    ``render`` builds them."""
     proj, order = screen(scene, cam, cfg)
     colors = torch.cat([sh.sh_to_color(scene.sh_degree, scene.features(),
                                        scene.xyz, cam.camera_center),
@@ -250,7 +333,7 @@ def walk_inputs(scene, cam, cfg):
         scene.opacity_activated(), proj.depth, colors,
         (proj.radius_x, proj.radius_y), proj.visible, order, cam.width,
         cam.height, cfg)
-    return (gpair, pr["starts"], pr["counts"], origins), colors.shape[-1]
+    return (gpair, pr["starts"], pr["counts"], origins), colors.shape[-1], pr
 
 
 def compare_walk(got, ref, C: int) -> dict:
@@ -319,31 +402,32 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_render(scene, cam, cfg, render_ms: float, reps: int = 3) -> dict:
-    """Where a render's time goes: torch.profiler over ``reps`` renders.
-    Device busy is the summed time of the device-side events (kernels,
-    copies, fills); the idle share is the rest of ``render_ms``, the
-    unprofiled render time (the profiler itself slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
-    render(scene, cam, cfg)
+def profile(fn, wall_ms: float, reps: int) -> dict:
+    """Where the time of one call of ``fn`` goes: torch.profiler over
+    ``reps`` calls after a warm-up call. Device busy is the summed time of
+    the device-side events (kernels, copies, fills) per call; the idle share
+    is the rest of ``wall_ms``, the unprofiled time of one call (the
+    profiler itself slows the host)."""
+    from torch.profiler import ProfilerActivity
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            render(scene, cam, cfg)
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
             for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return {"render_ms": render_ms, "profiled_wall_ms": wall_ms,
-            "device_busy_ms": busy, "idle_share": 1.0 - busy / render_ms,
-            "device_ops_per_render": sum(r[2] for r in rows),
+    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "device_ops_per_call": sum(r[2] for r in rows),
             "top": [{"name": k[:80], "ms": ms, "calls": c}
-                    for k, ms, c in rows[:8]]}
+                    for k, ms, c in rows[:10]]}
 
 
 def small_reference_check(seed: int) -> dict:
@@ -368,6 +452,478 @@ def small_reference_check(seed: int) -> dict:
         if not torch.equal(outs["cuda"][k].cpu(), outs["cpu"][k]):
             raise AssertionError(f"card and CPU renders differ on {k}")
     return diffs
+
+
+# --------------------------------------------------------------------------
+# phase 8: the backward kernels at full width
+# --------------------------------------------------------------------------
+
+def segment_mask(starts, counts, pc: int):
+    """[PC] bool: the positions of the tiles' 128-aligned segments (the
+    slab rows the backward walk writes): the zero-filled part of every
+    segment when no chunk is walked."""
+    return hopper_raster._zero_fill_mask(starts, counts,
+                                         torch.full_like(starts, -1), pc)
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+def poisoned_empty(shape, dtype, device) -> int:
+    """Fill a block of ``shape`` with NaN and free it; the caching
+    allocator hands that block to the next allocation of the same size, so
+    a kernel's ``torch.empty`` output starts out as NaN. Returns its
+    address, which the caller checks."""
+    if torch.device(device).type != "cuda":
+        return None                 # only the card's allocator caches
+    x = torch.full(shape, float("nan"), dtype=dtype, device=device)
+    ptr = x.data_ptr()
+    del x
+    return ptr
+
+
+def bwd_inputs(walk_args, fwd_out, C: int, seed: int):
+    """The backward walk's inputs for one view: the forward's, its output,
+    a seeded cotangent and the per-tile last contributing chunk."""
+    gpair, starts, counts, origins = walk_args
+    g = torch.Generator(device=fwd_out.device).manual_seed(seed + 2)
+    cot = torch.randn((fwd_out.shape[0], C + 2, fwd_out.shape[2]),
+                      generator=g, device=fwd_out.device)
+    jhi = hopper_raster._jhi(fwd_out, starts, counts, C)
+    return (gpair, starts, counts, origins, jhi, fwd_out, cot)
+
+
+def compare_bwd(args, C: int, cfg, dtype) -> dict:
+    """K2 (into a slab that held NaN) against its plain version: relative
+    L2 per gradient row over the written rows, zeros past each tile's
+    jhi."""
+    gpair, starts, counts = args[0], args[1], args[2]
+    PC, rows = gpair.shape[1], gpair.shape[0]
+    ref = hopper_raster.bwd_pairwalk_plain(*args, C, cfg, dtype)
+    ptr = poisoned_empty((PC, rows), dtype, gpair.device)
+    got = hopper_raster.bwd_pairwalk(*args, C, cfg, dtype)
+    synced(gpair.device)
+    if ptr is not None and got.data_ptr() != ptr:
+        raise AssertionError("the backward slab did not reuse the "
+                             "NaN-filled block")
+    mask = segment_mask(starts, counts, PC)
+    g, r = got[mask].float(), ref[mask].float()
+    per_row = [rel_l2(g[:, i], r[:, i])
+               for i in range(hopper_raster.N_FIXED + C)]
+    m = {"dtype": str(dtype).replace("torch.", ""),
+         "rows_rel_l2_max": max(per_row),
+         "finite": bool(torch.isfinite(g).all()),
+         "pad_rows_zero": bool((g[:, hopper_raster.N_FIXED + C:] == 0).all()),
+         "max_abs_err": float((g - r).abs().max()),
+         "written_rows": int(mask.sum())}
+    log("bwd_pairwalk vs plain: " + json.dumps(m))
+    if not (m["finite"] and m["pad_rows_zero"]
+            and m["rows_rel_l2_max"] <= BWD_TOL[dtype]):
+        raise AssertionError(f"bwd_pairwalk disagrees with its plain version "
+                             f"({m}; limit {BWD_TOL[dtype]})")
+    return m, got
+
+
+def seg_inputs(slab, pr):
+    """The reduction's inputs as _reduce_to_gauss builds them."""
+    si, perm = torch.sort(pr["pair_idx"], stable=True)
+    ends = torch.cumsum(pr["per_rank_counts"], 0, dtype=torch.int32)
+    return (slab, perm.to(torch.int32), si.to(torch.int32), ends)
+
+
+def compare_seg(seg_args, kmax: int) -> dict:
+    ref = hopper_raster.seg_reduce_plain(*seg_args, kmax)
+    got = hopper_raster.seg_reduce(*seg_args, kmax)
+    synced(got.device)
+    m = {"rel_l2": rel_l2(got, ref), "finite": bool(torch.isfinite(got).all()),
+         "max_abs_err": float((got - ref).abs().max()),
+         "ranks": int(got.shape[0])}
+    log("seg_reduce vs plain: " + json.dumps(m))
+    if not (m["finite"] and bool(torch.isfinite(ref).all())
+            and m["rel_l2"] <= SEG_TOL):
+        raise AssertionError(f"seg_reduce disagrees with its plain version "
+                             f"({m}; limit {SEG_TOL})")
+    return m
+
+
+def ops_per_blend(C: int) -> int:
+    """f32 operations a blended pair-pixel evaluation of the backward walk
+    adds to the forward's OPS_PER_EVAL: the transmittance division, u (C + 2
+    products and sums), w, dalpha, s, dpower and dop (~10), the 8 + C
+    per-pixel terms and their 8 + C additions into the tile's sums."""
+    return 2 + 2 * (C + 2) + 10 + 2 * (8 + C)
+
+
+def walk_evals(args, C: int, cfg) -> tuple[float, float]:
+    """(evaluations, blended evaluations) the backward walk must make on
+    these inputs. Each pixel evaluates the pairs of its tile up to its own
+    last blended pair (none where nothing blends), from this run's
+    n_contrib; an evaluation blends where the pair is kept at or before
+    n_contrib, counted chunk by chunk as the plain walk's mask."""
+    gpair, starts, counts, origins, jhi, fwd_out, _ = args
+    nc = fwd_out[:, C + 2, :]
+    st = starts[:, None].to(nc.dtype)
+    evals = float(torch.where(nc >= 0, nc - st + 1,
+                              torch.zeros_like(nc)).double().sum())
+    PC, ts, T = gpair.shape[1], cfg.tile_size, starts.shape[0]
+    flat = torch.arange(ts * ts, device=gpair.device)
+    p, q = (flat % ts).float(), (flat // ts).float()
+    monos = (p, q, p * p, p * q, q * q)
+    lane = torch.arange(hopper_raster.CHUNK, device=gpair.device)
+    origins2 = origins.reshape(T, 2).float()
+    blended = torch.zeros((), dtype=torch.int64, device=gpair.device)
+    for b0 in range(0, T, hopper_raster.PLAIN_TILE_BATCH):
+        b1 = min(b0 + hopper_raster.PLAIN_TILE_BATCH, T)
+        jh = jhi[b0:b1].long()
+        for j in range(int(jh.max()) + 1):
+            pos = starts[b0:b1, None].long() + j * hopper_raster.CHUNK + lane
+            g = gpair[:, pos.clamp(max=PC - 1)]
+            power, keep_eps = hopper_raster._pair_power(
+                g, origins2[b0:b1, 0:1], origins2[b0:b1, 1:2], monos, ts)
+            pm = torch.where(power <= keep_eps[:, None, :],
+                             power.clamp(max=0.0),
+                             torch.full_like(power, -40.0))
+            keep = (g[hopper_raster.R_OP][:, None, :] * torch.exp(pm)
+                    >= cfg.alpha_min)
+            blended += (keep & (pos.float()[:, None, :] <= nc[b0:b1, :, None])
+                        & (jh >= j)[:, None, None]).sum()
+    return evals, float(blended)
+
+
+def bwd_bound_ms(args, C: int, cfg, slab_dtype) -> tuple[float, str, dict]:
+    """The least time for the backward walk on these inputs. Bytes: the
+    N_FIXED + C rows of every pair the walk must read (each tile's
+    segment up to its last blended pair), the forward output and the
+    cotangent read once, the slab's written rows written once, the tile
+    tables read once. Operations: OPS_PER_EVAL for every evaluation (each
+    pixel up to its own last blended pair) and ops_per_blend more for each
+    one that blends, counted from this run's data (walk_evals)."""
+    gpair, starts, counts, origins, jhi, fwd_out, cot = args
+    rows = gpair.shape[0]
+    last = fwd_out[:, C + 2, :].amax(1).long()
+    needed = int((last - starts.long() + 1).clamp_min(0).sum())
+    written = int((torch.div(counts.long() + 127, 128,
+                             rounding_mode="floor") * 128).sum())
+    esize = torch.tensor([], dtype=slab_dtype).element_size()
+    bytes_moved = ((hopper_raster.N_FIXED + C) * needed * 4
+                   + (fwd_out.numel() + cot.numel()) * 4
+                   + written * rows * esize
+                   + (starts.numel() * 3 + origins.numel()) * 4)
+    evals, blended = walk_evals(args, C, cfg)
+    ops = evals * OPS_PER_EVAL + blended * ops_per_blend(C)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    detail = {"bytes": bytes_moved, "evals": evals, "blended": blended,
+              "ops": ops, "needed_pairs": needed, "bytes_ms": t_bytes,
+              "ops_ms": t_ops}
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), detail
+
+
+def seg_bound_ms(seg_args) -> tuple[float, str, dict]:
+    """The least time for the reduction: bytes (each emitted pair's slab
+    row, perm entry and si entry read once, ``ends`` read once, the [K,
+    rows] float32 result written once; the slab's padding and its
+    unwritten tail are not needed) against one addition per value read."""
+    slab, perm, si, ends = seg_args
+    rows, K = slab.shape[1], ends.numel()
+    n_pairs = int(ends[-1]) if K else 0     # per_rank_counts.sum()
+    bytes_moved = (n_pairs * (rows * slab.element_size() + 4 + 4)
+                   + K * 4 + K * rows * 4)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = n_pairs * rows / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), {
+        "bytes": bytes_moved, "pairs": n_pairs, "bytes_ms": t_bytes,
+        "ops_ms": t_ops}
+
+
+def library_seg_ms(seg_args, pr) -> float:
+    """torch.segment_reduce over the gathered float32 rows: the same
+    per-rank sums when nothing was dropped (the sentinel tail is its own
+    last segment). Timed as the yardstick; the port never calls it."""
+    slab, perm, _, _ = seg_args
+    gathered = slab.index_select(0, perm.long()).float()
+    prc = pr["per_rank_counts"].long()
+    lengths = torch.cat([prc, (slab.shape[0] - prc.sum()).reshape(1)])
+    out = torch.segment_reduce(gathered, "sum", lengths=lengths)
+    ref = hopper_raster.seg_reduce_plain(*seg_args, 1 << 20)
+    err = rel_l2(out[:-1], ref)
+    log(f"torch.segment_reduce vs the plain reduction: rel L2 {err:.3e}")
+    return event_ms(lambda: torch.segment_reduce(gathered, "sum",
+                                                 lengths=lengths), 20)
+
+
+def check_backward(walk_args, fwd_out, pr, C: int, cfg, seed: int,
+                   width: int = WIDTH, height: int = HEIGHT):
+    """K2 (f32 and bf16 slabs) and K3 against their plain versions on one
+    view's inputs -> (K2's inputs, K3's inputs, kmax, the worst absolute
+    error of each)."""
+    args = bwd_inputs(walk_args, fwd_out, C, seed)
+    m32, _ = compare_bwd(args, C, cfg, torch.float32)
+    m16, slab = compare_bwd(args, C, cfg, torch.bfloat16)
+    kmax = pairs.big_tiles_for(cfg, width, height)
+    seg_args = seg_inputs(slab, pr)      # the slab held NaN before K2 ran
+    ms_ = compare_seg(seg_args, kmax)
+    errs = {"bwd_pairwalk": max(m32["max_abs_err"], m16["max_abs_err"]),
+            "seg_reduce": ms_["max_abs_err"]}
+    return args, seg_args, kmax, errs
+
+
+def backward_phase(walk_args, fwd_out, pr, C: int, cfg, seed: int,
+                   card: str) -> dict:
+    """Phase 8: K2 and K3 against their plain versions at the main path's
+    shapes, then their times and bounds."""
+    args, seg_args, kmax, errs = check_backward(walk_args, fwd_out, pr, C,
+                                                cfg, seed)
+    out = {k: {"max_abs_err": v} for k, v in errs.items()}
+    dt = hopper_raster.GRAD_SLAB_DTYPE
+    k2 = event_ms(lambda: hopper_raster.bwd_pairwalk(*args, C, cfg, dt), 20)
+    k2_plain = event_ms(lambda: hopper_raster.bwd_pairwalk_plain(
+        *args, C, cfg, dt), 3, 1)
+    k3 = event_ms(lambda: hopper_raster.seg_reduce(*seg_args, kmax), 20)
+    k3_plain = event_ms(lambda: hopper_raster.seg_reduce_plain(
+        *seg_args, kmax), 3, 1)
+    k3_lib = library_seg_ms(seg_args, pr)
+    b2, by2, d2 = bwd_bound_ms(args, C, cfg, dt)
+    b3, by3, d3 = seg_bound_ms(seg_args)
+    out["bwd_pairwalk"].update(ms=k2, plain_ms=k2_plain, bound_ms=b2,
+                               bound_by=by2, library_ms=None)
+    out["seg_reduce"].update(ms=k3, plain_ms=k3_plain, bound_ms=b3,
+                             bound_by=by3, library_ms=k3_lib)
+    log(f"timing on {card} ({str(dt)[6:]} slab): bwd_pairwalk {k2:.4f} ms, "
+        f"plain {k2_plain:.4f} ms, bound {b2:.4f} ms ({by2}; "
+        f"{json.dumps(d2)}); no single PyTorch call computes the walk "
+        f"(library_ms null)")
+    log(f"timing on {card}: seg_reduce {k3:.4f} ms, plain {k3_plain:.4f} "
+        f"ms, torch.segment_reduce {k3_lib:.4f} ms, bound {b3:.4f} ms "
+        f"({by3}; {json.dumps(d3)})")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phases 9 and 10: the mapping trainer
+# --------------------------------------------------------------------------
+
+def make_keyframes(scene, cfg: MappingConfig, n: int, device) -> list:
+    """``n`` RGB-D keyframes of the scene along a short path (5 cm steps
+    in x and a slow turn about y), rendered with the port's ``render``: RGB
+    in [0, 1]; depth as a depth sensor reports it, the rendered expected
+    depth over the rendered alpha where alpha > 0.5 and 0 (no reading)
+    elsewhere (the un-normalised expected depth would put the back-projected
+    points of faint pixels near the camera); and a score of 0.5 on every
+    7th pixel each way (tests/test_train.py's synthetic score)."""
+    base = Camera.create(np.eye(4, dtype=np.float32), cfg.fx, cfg.fy,
+                         cfg.cx, cfg.cy, cfg.width, cfg.height,
+                         device=device)
+    poses = []
+    for i in range(n):
+        xi = torch.tensor([0.05 * i, 0.0, 0.0, 0.0, 0.01 * i, 0.0],
+                          dtype=torch.float32, device=device)
+        poses.append(transforms.se3_exp(xi))
+    cams = [base.replace_pose(w) for w in poses]
+    rcfg = size_pair_array(scene, cams, RasterConfig(use_pallas=True))
+    frames = []
+    for cam in cams:
+        with torch.no_grad():
+            out = render(scene, cam, rcfg)
+        rgb = out["render"].clamp(0, 1).cpu().numpy()
+        alpha = out["opacity"]
+        depth = torch.where(alpha > 0.5, out["depth"] / alpha.clamp_min(0.5),
+                            torch.zeros_like(alpha)).cpu().numpy()
+        score = np.zeros((cfg.height, cfg.width), np.float32)
+        score[::7, ::7] = 0.5
+        frames.append((rgb, depth, score,
+                       cam.w2c.cpu().numpy().astype(np.float32)))
+    return frames
+
+
+def reset_launches() -> None:
+    for k in (hopper_raster.fwd_pairwalk, hopper_raster.bwd_pairwalk,
+              hopper_raster.seg_reduce):
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    return {"fwd_pairwalk": hopper_raster.fwd_pairwalk.launches,
+            "bwd_pairwalk": hopper_raster.bwd_pairwalk.launches,
+            "seg_reduce": hopper_raster.seg_reduce.launches}
+
+
+def profile_step(trainer, reps: int = 2) -> dict:
+    """Where a mapping step's time goes: one unprofiled timing of the step
+    function on the trainer's state (outputs discarded), then ``profile``
+    over ``reps`` steps."""
+    V = trainer.cfg.window_size
+    frames = trainer.frames.gather(np.resize(np.arange(trainer.frames.n),
+                                             V))
+
+    def step():
+        return trainer._mapping_step(trainer.scene, trainer.opt_state,
+                                     trainer.stats, frames,
+                                     trainer.iteration)
+    step()
+    synced(trainer.device)
+    t0 = time.perf_counter()
+    step()
+    synced(trainer.device)
+    return profile(step, (time.perf_counter() - t0) * 1e3, reps)
+
+
+def train_kernel_check(trainer, frame, seed: int) -> dict:
+    """The three kernels against their plain versions on the trainer's own
+    inputs: one keyframe's view of the trained scene under the caps and
+    tiers the trainer ended with (its pair_cap_override and visible_cap K,
+    most of whose ranks have no pairs)."""
+    cfg = trainer.cfg
+    rcfg = cfg.raster_config()
+    cam = Camera.create(frame[3], cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.width,
+                        cfg.height, device=trainer.device)
+    with torch.no_grad():
+        walk_args, C, pr = walk_inputs(trainer.scene, cam, rcfg)
+        got = hopper_raster.fwd_pairwalk(*walk_args, C, rcfg)
+        ref = hopper_raster.fwd_pairwalk_plain(*walk_args, C, rcfg)
+        synced(trainer.device)
+        m = compare_walk(got, ref, C)
+        *_, errs = check_backward(walk_args, got, pr, C, rcfg, seed,
+                                  cfg.width, cfg.height)
+    res = {"fwd_pairwalk": m["max_abs_err"], **errs,
+           "pair_array": int(walk_args[0].shape[1]),
+           "ranks": int(pr["per_rank_counts"].numel()),
+           "pairs": int(pr["per_rank_counts"].sum())}
+    log("train: kernels vs plain on the trainer's inputs " + json.dumps(res))
+    return res
+
+
+def check_scene(trainer) -> None:
+    alive = trainer.scene.alive
+    for k in GaussianScene.PARAM_FIELDS:
+        x = getattr(trainer.scene, k)[alive]
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"non-finite {k} in the trained scene")
+
+
+def checkpoint_round_trip(trainer, cfg, seed: int) -> None:
+    """Save the trainer, load into a fresh one; every field equal."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ckpt.npz")
+        checkpoint.save(trainer, path)
+        back = MappingTrainer(cfg, capacity=trainer.scene.capacity - 640,
+                              frame_capacity=trainer.frames.capacity,
+                              seed=seed + 1, device=trainer.device)
+        checkpoint.load(back, path)
+    for k in GaussianScene.PARAM_FIELDS + ("alive",):
+        if not torch.equal(getattr(back.scene, k), getattr(trainer.scene, k)):
+            raise AssertionError(f"checkpoint round trip changed scene {k}")
+    for k in GaussianScene.PARAM_FIELDS:
+        if not (torch.equal(back.opt_state.m[k], trainer.opt_state.m[k])
+                and torch.equal(back.opt_state.v[k], trainer.opt_state.v[k])):
+            raise AssertionError(f"checkpoint round trip changed Adam {k}")
+    if (back.iteration, back.frames.n) != (trainer.iteration,
+                                           trainer.frames.n):
+        raise AssertionError("checkpoint round trip changed the counters")
+    log("checkpoint: save and load exact (scene, Adam, frames, counters)")
+
+
+def replica_config(**changes) -> MappingConfig:
+    """The trainer's configuration from the shipped Replica config;
+    ``changes`` (a CPU rehearsal's smaller image) replace fields."""
+    cfg = MappingConfig.from_config(load_config(str(REPLICA_CONFIG)))
+    return dataclasses.replace(cfg, **changes)
+
+
+def train_phase(scene, seed: int, device, card: str,
+                capacity: int = TRAIN_CAPACITY, n_keyframes: int = N_KEYFRAMES,
+                map_iters: int = MAP_ITERS, refine_iters: int = REFINE_ITERS,
+                cfg_changes: dict | None = None) -> dict:
+    """Phase 9: the mapping trainer on the Replica configuration."""
+    cfg = replica_config(**(cfg_changes or {}))
+    frames = make_keyframes(scene, cfg, n_keyframes, device)
+    trainer = MappingTrainer(cfg, capacity=capacity, seed=seed,
+                             device=device)
+    synced(device)
+    losses, step_s, densify_at = [], [], []
+    reset_launches()
+    t_start = time.perf_counter()
+    for f in frames:
+        trainer.add_keyframe(*f)
+        for _ in range(map_iters):
+            t0 = time.perf_counter()
+            losses.append(trainer.map(1))      # the loss read syncs
+            step_s.append(time.perf_counter() - t0)
+            if (trainer.iteration % cfg.gaussian_update_every
+                    == cfg.gaussian_update_offset):
+                densify_at.append(trainer.iteration)
+    t0 = time.perf_counter()
+    refine_loss = trainer.color_refinement(refine_iters)
+    synced(device)
+    refine_s = time.perf_counter() - t0
+    launches = read_launches()
+    wall_s = time.perf_counter() - t_start
+
+    n_map = n_keyframes * map_iters
+    want = cfg.window_size * n_map + refine_iters
+    # steady steps: past the first keyframe (one-time set-up) and not the
+    # densify iterations
+    steady = [s for i, s in enumerate(step_s, start=1)
+              if i > map_iters and i not in densify_at]
+    res = {"mapping_iterations": n_map, "refine_iterations": refine_iters,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "refine_loss": refine_loss, "alive": int(trainer.scene.num_alive),
+           "capacity": trainer.scene.capacity,
+           "visible_cap": trainer.cfg.visible_cap,
+           "pair_cap_override": trainer.cfg.pair_cap_override,
+           "densify_at": densify_at,
+           "step_ms_mean": float(np.mean(steady)) * 1e3,
+           "step_ms_min": float(np.min(steady)) * 1e3,
+           "step_ms_max": float(np.max(steady)) * 1e3,
+           "first_step_ms": step_s[0] * 1e3,
+           "refine_step_ms_mean": refine_s / refine_iters * 1e3,
+           "wall_s": wall_s, "n_dropped_total": trainer.n_dropped_total}
+    log(f"train on {card}: " + json.dumps(res))
+    log(f"train: launches {json.dumps(launches)} for {n_map} mapping "
+        f"iterations of {cfg.window_size} views and {refine_iters} "
+        f"refinement iterations (expected {want} each)")
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    if trainer.n_dropped_total != 0:
+        raise AssertionError(f"{trainer.n_dropped_total} pairs dropped")
+    if not (all(np.isfinite(losses)) and np.isfinite(refine_loss)):
+        raise AssertionError(f"non-finite loss: {losses} {refine_loss}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mapping loss did not fall: first "
+                             f"{losses[0]}, last {losses[-1]}")
+    check_scene(trainer)
+    kernel_errs = train_kernel_check(trainer, frames[-1], seed)
+    checkpoint_round_trip(trainer, cfg, seed)
+    log("train step profile: " + json.dumps(profile_step(trainer)))
+    return {"launches": launches, "kernel_errs": kernel_errs, **res}
+
+
+def determinism_phase(scene, seed: int, device,
+                      capacity: int = TRAIN_CAPACITY,
+                      cfg_changes: dict | None = None) -> None:
+    """Phase 10: two trainers with the same seed, two keyframes, ten
+    iterations: bit-identical xyz and opacity."""
+    cfg = replica_config(**(cfg_changes or {}))
+    frames = make_keyframes(scene, cfg, 2, device)
+
+    def run():
+        t = MappingTrainer(cfg, capacity=capacity, seed=seed + 5,
+                           device=device)
+        for f in frames:
+            t.add_keyframe(*f)
+        t.map(10)
+        return t
+
+    a, b = run(), run()
+    for k in ("xyz", "opacity", "alive"):
+        if not torch.equal(getattr(a.scene, k), getattr(b.scene, k)):
+            raise AssertionError(f"two trainers with one seed differ on {k}")
+    log(f"repeat: two trainers with seed {seed + 5} bit-identical on xyz, "
+        f"opacity and alive ({int(a.scene.num_alive)} Gaussians alive)")
 
 
 def main(argv=None) -> int:
@@ -429,7 +985,7 @@ def main(argv=None) -> int:
                              f"{len(cams)} renders")
 
     # 5. kernel against plain version at the main path's shapes
-    walk_args, C = walk_inputs(scene, cams[0], cfg)
+    walk_args, C, pr0 = walk_inputs(scene, cams[0], cfg)
     gpair = walk_args[0]
     log(f"walk inputs: gpair {tuple(gpair.shape)} "
         f"({gpair.numel() * 4 / 1e6:.1f} MB), {walk_args[1].numel()} tiles, "
@@ -450,24 +1006,63 @@ def main(argv=None) -> int:
         f"whole render {render_ms:.4f} ms")
     log("library: no single PyTorch call computes the pair walk, so there "
         "is no library yardstick (library_ms null)")
-    log("profile: " + json.dumps(profile_render(scene, cams[0], cfg,
-                                                render_ms)))
+    log("profile of one render: " + json.dumps(
+        profile(lambda: render(scene, cams[0], cfg), render_ms, 3)))
 
     # 7. a small render against the CPU path
     small_reference_check(args.seed)
 
-    kernels = [{
-        "name": "fwd_pairwalk", "route": "cuda",
-        "source": "splatloc_tpu_torch/csrc/fwd_pairwalk.cu",
-        "replaces": "splatloc_tpu/raster/pallas_raster.py:175",
-        "launches": launches["fwd_pairwalk"],
-        "max_abs_err": m["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+    # 8. the backward kernels at the main path's shapes (view 0)
+    bwd = backward_phase(walk_args, got, pr0, C, cfg, args.seed, card)
+
+    # 9. train: the second main path, counts set to 0 just before, read
+    # just after (inside train_phase), on keyframes rendered from a room
+    room = make_room_scene(N_GAUSSIANS, args.seed, dev)
+    train = train_phase(room, args.seed, dev, card)
+
+    # 10. repeat runs are bit-identical
+    determinism_phase(room, args.seed, dev)
+
+    paths = {"serve": launches, "train": train["launches"]}
+
+    def launched(k):
+        return {"launches": sum(p.get(k, 0) for p in paths.values()),
+                "launches_by_path": {n: p.get(k, 0)
+                                     for n, p in paths.items()}}
+
+    # the worst error against the plain version over phases 5, 8 and 9
+    m["max_abs_err"] = max(m["max_abs_err"],
+                           train["kernel_errs"]["fwd_pairwalk"])
+    for k in ("bwd_pairwalk", "seg_reduce"):
+        bwd[k]["max_abs_err"] = max(bwd[k]["max_abs_err"],
+                                    train["kernel_errs"][k])
+
+    src = "splatloc_tpu_torch/csrc/"
+    ref = "splatloc_tpu/raster/pallas_raster.py:"
+    kernels = [
+        {"name": "fwd_pairwalk", "route": "cuda",
+         "source": src + "fwd_pairwalk.cu", "replaces": ref + "175",
+         **launched("fwd_pairwalk"),
+         "max_abs_err": m["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+        {"name": "bwd_pairwalk", "route": "cuda",
+         "source": src + "bwd_pairwalk.cu", "replaces": ref + "357",
+         **launched("bwd_pairwalk"), **bwd["bwd_pairwalk"]},
+        {"name": "seg_reduce", "route": "cuda",
+         "source": src + "seg_reduce.cu", "replaces": ref + "736",
+         **launched("seg_reduce"), **bwd["seg_reduce"]},
+        # _compact_copy_kernel's upcast is seg_reduce's load: the same
+        # launches and times
+        {"name": "compact_copy", "route": "cuda",
+         "source": src + "seg_reduce.cu", "replaces": ref + "703",
+         "folded_into": "seg_reduce",
+         **launched("seg_reduce"), **bwd["seg_reduce"]},
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
+    # the run uses one device, cuda:0, whatever else the host shows
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0
 
 

@@ -6,12 +6,17 @@ PyTorch; every Pallas kernel of the JAX package becomes a kernel written by
 hand for ``sm_90a`` (sources under ``csrc/``, built with ``nvcc`` at first
 use). The package imports neither JAX nor anything of ``splatloc_tpu``.
 
-Ported so far (the serving forward render):
+Ported so far (the serving forward render and the mapping trainer):
 
 - ``core``    rotations, SE(3), spherical harmonics, the pinhole ``Camera``
 - ``raster``  projection, depth sort, pair binning, the pair-walk forward
-              kernel (``hopper_raster``) and the ``render`` entry point
-- ``scene``   ``GaussianScene`` and the reference PLY format
+              and backward kernels and the per-Gaussian reduction
+              (``hopper_raster``), the ``render`` entry point
+- ``scene``   ``GaussianScene`` with slot management, Adam, densification,
+              keyframe initialisation and the reference PLY format
+- ``knn``     mean squared distance to the 3 nearest neighbours
+- ``train``   losses, the mapping trainer and its checkpoints
+- ``cli``     the YAML config loader
 - ``convert`` JAX-side numpy fields -> port objects
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on

@@ -4,9 +4,10 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ctypes. Builds happen at
 first use, from the sources in the checkout, into ``build/kernels/`` at the
 repository root (listed in ``.gitignore``). A library's file name carries a
-hash of its source, so an edited source is rebuilt and an unchanged one is
-reused. ``build_all`` starts one ``nvcc`` per source at once and waits for
-all of them.
+hash of its source and of every header it includes from ``csrc/``
+(``#include "..."``, followed recursively), so an edited source or header
+is rebuilt and an unchanged one is reused. ``build_all`` starts one
+``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import time: the CPU test suite imports every module
 of the package on machines without ``nvcc``.
@@ -17,6 +18,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +26,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = {"fwd_pairwalk": "fwd_pairwalk.cu"}
+SOURCES = {"fwd_pairwalk": "fwd_pairwalk.cu",
+           "bwd_pairwalk": "bwd_pairwalk.cu",
+           "seg_reduce": "seg_reduce.cu"}
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 # no --use_fast_math: __expf would move alpha away from the reference
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -48,10 +53,25 @@ def _nvcc() -> str:
     return path
 
 
+def _source_files(name: str) -> list[Path]:
+    """The source of kernel ``name`` and every ``csrc/`` header it includes
+    with quotes, directly or through another header, in a fixed order."""
+    files, todo = [], [CSRC / SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            todo.append((path.parent / inc).resolve())
+    return files
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, Built]:

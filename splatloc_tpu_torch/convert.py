@@ -1,8 +1,9 @@
 """Port objects from numpy fields.
 
-A JAX-side ``GaussianScene`` or ``Camera`` crosses into the port as a dict
-of numpy arrays (``{name: np.asarray(getattr(obj, name))}``), so neither
-package imports the other.
+A JAX-side ``GaussianScene``, ``Camera``, Adam state, densification stats or
+whole trainer state crosses into the port as numpy arrays
+(``{name: np.asarray(getattr(obj, name))}``), so neither package imports
+the other.
 """
 from __future__ import annotations
 
@@ -48,3 +49,53 @@ def camera_from_numpy(fields: dict, device="cuda") -> Camera:
                          znear=float(fields.get("znear", 0.01)),
                          zfar=float(fields.get("zfar", 100.0)),
                          device=device)
+
+
+def adam_from_numpy(step, m: dict, v: dict, device="cuda"):
+    """optim.AdamState on ``device`` from a JAX AdamState's step and
+    moment dicts."""
+    from splatloc_tpu_torch.scene import optim
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return optim.AdamState(
+        step=torch.as_tensor(np.asarray(step, np.int32), device=device),
+        m={k: t(x) for k, x in m.items()}, v={k: t(x) for k, x in v.items()})
+
+
+def stats_from_numpy(fields: dict, device="cuda"):
+    """densify.DensifyStats on ``device`` from a JAX DensifyStats' fields
+    (xyz_gradient_accum, denom, max_radii2d)."""
+    from splatloc_tpu_torch.scene import densify
+    return densify.DensifyStats(**{
+        k: torch.as_tensor(np.asarray(fields[k], np.float32), device=device)
+        for k in ("xyz_gradient_accum", "denom", "max_radii2d")})
+
+
+def trainer_state_from_numpy(trainer, scene: dict, adam: dict, stats: dict,
+                             frames: dict, iteration: int):
+    """Load a JAX trainer's state into the port's ``trainer`` (same config
+    and capacity): ``scene`` the GaussianScene fields, ``adam`` {step, m,
+    v}, ``stats`` the DensifyStats fields, ``frames`` the first n frames of
+    its FrameStore {n, rgb, depth_mm, score, w2c, exposure}, and the
+    iteration counter. The JAX PRNG key has no torch counterpart and is not
+    taken. Returns the trainer."""
+    dev = trainer.device
+    cap = trainer.scene.capacity
+    if np.asarray(scene["xyz"]).shape[0] != cap:
+        raise ValueError(f"scene has {np.asarray(scene['xyz']).shape[0]} "
+                         f"slots, the trainer {cap}")
+    trainer.scene = scene_from_numpy(scene, trainer.scene.sh_degree, dev)
+    trainer.opt_state = adam_from_numpy(adam["step"], adam["m"], adam["v"],
+                                        dev)
+    trainer.stats = stats_from_numpy(stats, dev)
+    fs = trainer.frames
+    n = int(frames["n"])
+    fs.n = n
+    for k, dtype in (("rgb", np.uint8), ("depth_mm", np.int32),
+                     ("score", np.float16), ("w2c", np.float32),
+                     ("exposure", np.float32)):
+        getattr(fs, k)[:n] = torch.from_numpy(
+            np.asarray(frames[k]).astype(dtype)).to(dev)
+    trainer.iteration = int(iteration)
+    return trainer

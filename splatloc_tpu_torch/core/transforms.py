@@ -141,8 +141,9 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                       device=top.device)
+    # made by fills on the device: a copy from a host list would wait for
+    # the stream on every pose inversion of a render
+    row = torch.cat([top.new_zeros((3,)), top.new_ones((1,))])
     return row.expand(top.shape[:-2] + (1, 4))
 
 

@@ -41,26 +41,20 @@
 // tuned: no double buffering of the staging, no TMA, one block per tile
 // whatever the segment length.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "pair_power.cuh"
 
 namespace {
 
-constexpr int R_X = 0, R_Y = 1, R_CA = 2, R_CB = 3, R_CC = 4, R_OP = 5,
-              R_DEPTH = 6, N_FIXED = 7;
+using namespace pairwalk;
+
 constexpr int STAGE = 256;              // pairs staged per step
-constexpr int MAX_CHANNELS = 24;
-constexpr float POWER_KEEP_EPS = 1e-5f;
-constexpr float KEEP_EPS_SCALE = 6.103515625e-05f;   // 2^-14
 
 // Shared-memory layout, each row STAGE floats: 0..5 the coefficients' bf16
 // limbs, 6..11 their remainders, 12 keep_eps, 13 opacity, 14..14+C-1
 // channels, 14+C depth.
 constexpr int S_HI = 0, S_LO = 6, S_EPS = 12, S_OP = 13, S_ATTR = 14;
-
-__device__ __forceinline__ float bf16_limb(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 template <int MAXC>
 __global__ void fwd_pairwalk_kernel(const float* __restrict__ gpair,
@@ -101,35 +95,10 @@ __global__ void fwd_pairwalk_kernel(const float* __restrict__ gpair,
       const long long col = static_cast<long long>(start) + base + k;
       const float ex = __fsub_rn(gpair[R_X * pc + col], ox);
       const float ey = __fsub_rn(gpair[R_Y * pc + col], oy);
-      const float ca = gpair[R_CA * pc + col];
-      const float cb = gpair[R_CB * pc + col];
-      const float cc = gpair[R_CC * pc + col];
-      const float a_ex = __fmul_rn(ca, ex);
-      const float c_ey = __fmul_rn(cc, ey);
-      const float b_ex = __fmul_rn(cb, ex);
-      float cf[6];
-      cf[0] = __fsub_rn(
-          __fmul_rn(-0.5f, __fmaf_rn(a_ex, ex, __fmul_rn(c_ey, ey))),
-          __fmul_rn(b_ex, ey));
-      cf[1] = __fmaf_rn(ca, ex, __fmul_rn(cb, ey));
-      cf[2] = __fmaf_rn(cc, ey, b_ex);
-      cf[3] = __fmul_rn(-0.5f, ca);
-      cf[4] = -cb;
-      cf[5] = __fmul_rn(-0.5f, cc);
-      const float mag = __fadd_rn(
-          __fadd_rn(fabsf(cf[0]),
-                    __fmul_rn(tm1, __fadd_rn(fabsf(cf[1]), fabsf(cf[2])))),
-          __fmul_rn(__fmul_rn(tm1, tm1),
-                    __fadd_rn(__fadd_rn(fabsf(cf[3]), fabsf(cf[4])),
-                              fabsf(cf[5]))));
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        const float hi = bf16_limb(cf[i]);
-        smem[(S_HI + i) * STAGE + k] = hi;
-        smem[(S_LO + i) * STAGE + k] = __fsub_rn(cf[i], hi);
-      }
-      smem[S_EPS * STAGE + k] =
-          fmaxf(__fmul_rn(mag, KEEP_EPS_SCALE), POWER_KEEP_EPS);
+      smem[S_EPS * STAGE + k] = power_limbs(
+          ex, ey, gpair[R_CA * pc + col], gpair[R_CB * pc + col],
+          gpair[R_CC * pc + col], tm1, smem + S_HI * STAGE + k,
+          smem + S_LO * STAGE + k, STAGE);
       smem[S_OP * STAGE + k] = gpair[R_OP * pc + col];
       for (int c = 0; c < n_channels; ++c)
         smem[(S_ATTR + c) * STAGE + k] = gpair[(N_FIXED + c) * pc + col];
@@ -138,20 +107,9 @@ __global__ void fwd_pairwalk_kernel(const float* __restrict__ gpair,
     __syncthreads();
     if (!done) {
       for (int k = 0; k < n; ++k) {
-        // each limb's products are exact, so every fmaf rounds only the sum
-        const float* h = smem + S_HI * STAGE + k;
-        const float* l = smem + S_LO * STAGE + k;
-        float ph = __fmaf_rn(h[1 * STAGE], p, h[0]);
-        ph = __fmaf_rn(h[2 * STAGE], q, ph);
-        ph = __fmaf_rn(h[3 * STAGE], pp, ph);
-        ph = __fmaf_rn(h[4 * STAGE], pq, ph);
-        ph = __fmaf_rn(h[5 * STAGE], qq, ph);
-        float pl = __fmaf_rn(l[1 * STAGE], p, l[0]);
-        pl = __fmaf_rn(l[2 * STAGE], q, pl);
-        pl = __fmaf_rn(l[3 * STAGE], pp, pl);
-        pl = __fmaf_rn(l[4 * STAGE], pq, pl);
-        pl = __fmaf_rn(l[5 * STAGE], qq, pl);
-        const float power = __fadd_rn(ph, pl);
+        const float power = eval_power(smem + S_HI * STAGE + k,
+                                       smem + S_LO * STAGE + k, STAGE, p, q,
+                                       pp, pq, qq);
         const float pm =
             power <= smem[S_EPS * STAGE + k] ? fminf(power, 0.f) : -40.f;
         const float raw = __fmul_rn(smem[S_OP * STAGE + k], expf(pm));

@@ -3,9 +3,9 @@
 Port of ``splatloc_tpu.raster.api``: ``rasterize`` is the functional core;
 ``render`` mirrors the reference's render() dict contract on a
 GaussianScene. The pair path (``cfg.use_pallas=True``) runs the
-hand-written pair-walk kernel on CUDA tensors and its plain version on CPU
-tensors. Gradients flow through the projection; the blend's backward is not
-ported yet and raises.
+hand-written pair-walk kernels on CUDA tensors and their plain versions on
+CPU tensors. Gradients flow through the projection and the blend (the
+backward walk and the per-Gaussian reduction).
 """
 from __future__ import annotations
 

@@ -320,7 +320,7 @@ def build_pairs(xy, radius_xy, visible, width: int, height: int,
     # per-tile filler population so every segment is a 128-multiple
     fill = torch.remainder(-counts, ALIGN)
     astarts = _aligned_starts(counts)
-    i32_max = torch.tensor(_I32_MAX, dtype=_I32, device=dev)
+    i32_max = torch.full((), _I32_MAX, dtype=_I32, device=dev)
 
     # slot-major [MT, N] emission table; the sort consumes a multiset
     slot = torch.arange(max_tiles, dtype=_I32, device=dev)[:, None]

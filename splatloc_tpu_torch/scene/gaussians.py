@@ -8,8 +8,8 @@ parameter semantics match the reference:
 - opacity [M,1] logit (activation sigmoid)
 - marker [M,1]: SuperPoint saliency lifted at init, never trained
 - kp_score [M,1]: learned raw logit rasterized as the 4th channel
-Slot management (free slots, insertion) belongs to mapping and is not
-ported yet.
+New Gaussians go into free slots (``free_slots``, ``slots_for``,
+``insert``), compactly and without a host sync.
 """
 from __future__ import annotations
 
@@ -18,6 +18,18 @@ import dataclasses
 import torch
 
 from splatloc_tpu_torch.core import transforms
+
+
+def set_rows(a: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+    """``a`` with rows ``idx`` set to ``value`` (a scalar or one row per
+    index); indices at or past the end are dropped, as the JAX package's
+    ``.at[idx].set(..., mode="drop")`` drops them. The dropped rows land on
+    a scratch row that is cut off, so kept indices, which are unique, get
+    their values whatever the order of the writes."""
+    n = a.shape[0]
+    ext = torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
+    ext[torch.clamp(idx.long(), max=n)] = value
+    return ext[:n]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +108,45 @@ class GaussianScene:
 
     def with_params(self, params: dict) -> "GaussianScene":
         return self.replace(**params)
+
+    # ---- slot management ---------------------------------------------
+
+    def free_slots(self, budget: int) -> torch.Tensor:
+        """Indices of up to ``budget`` free slots, in index order (filled
+        with capacity as an out-of-range sentinel)."""
+        mask = ~self.alive
+        pos = torch.cumsum(mask, 0) - 1
+        dst = torch.where(mask & (pos < budget), pos,
+                          torch.full_like(pos, budget))
+        slots = torch.full((budget + 1,), self.capacity, dtype=torch.int32,
+                           device=mask.device)
+        slots.scatter_(0, dst, torch.arange(self.capacity, dtype=torch.int32,
+                                            device=mask.device))
+        return slots[:budget]
+
+    def slots_for(self, valid_new: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Compactly assign free slots to the VALID entries of a budget-B
+        batch: the r-th valid entry gets the r-th free slot, so invalid
+        entries never waste slots (correct even when B > free capacity).
+
+        Returns (dst [B] int32 with the capacity as sentinel for dropped
+        entries, ok [B])."""
+        B = valid_new.shape[0]
+        slots = self.free_slots(B)
+        rank = torch.cumsum(valid_new, 0) - 1
+        entry_slot = slots[torch.clamp(rank, 0, B - 1)]
+        ok = valid_new & (entry_slot < self.capacity)
+        dst = torch.where(ok, entry_slot,
+                          torch.full_like(entry_slot, self.capacity))
+        return dst, ok
+
+    def insert(self, values: dict, valid_new: torch.Tensor
+               ) -> "GaussianScene":
+        """Scatter new Gaussians into free slots: ``values`` holds
+        PARAM_FIELDS tensors with leading dim B, ``valid_new`` [B] bool.
+        Points beyond the free capacity are dropped."""
+        dst, _ = self.slots_for(valid_new)
+        new = {k: set_rows(getattr(self, k), dst, values[k])
+               for k in self.PARAM_FIELDS}
+        return self.replace(alive=set_rows(self.alive, dst, True), **new)

@@ -12,7 +12,7 @@ import torch
 
 from splatloc_tpu_torch.core.camera import Camera
 from splatloc_tpu_torch.raster import binning, hopper_raster, project
-from splatloc_tpu_torch.raster import RasterConfig, render
+from splatloc_tpu_torch.raster import RasterConfig, rasterize, render
 from splatloc_tpu_torch.scene.gaussians import GaussianScene
 
 pytestmark = pytest.mark.cuda
@@ -159,3 +159,143 @@ def test_render_on_card_matches_cpu(cuda):
         assert float((got[k].cpu() - ref[k]).abs().max()) <= atol, k
     for k in ("radii", "visibility_filter"):
         assert torch.equal(got[k].cpu(), ref[k]), k
+
+
+# --------------------------------------------------------------------------
+# the backward walk (bwd_pairwalk) and the reduction (seg_reduce)
+# --------------------------------------------------------------------------
+
+def bwd_inputs(sc, cfg, seed=0):
+    """The backward walk's inputs on the CPU: the forward's, its output,
+    a seeded cotangent and jhi."""
+    gpair, starts, counts, origins = walk_inputs(sc, cfg)
+    C = sc[4].shape[1]
+    out = hopper_raster.fwd_pairwalk_plain(gpair, starts, counts, origins,
+                                           C, cfg)
+    g = torch.Generator().manual_seed(seed)
+    cot = torch.randn((out.shape[0], C + 2, out.shape[2]), generator=g)
+    jhi = hopper_raster._jhi(out, starts, counts, C)
+    return [gpair, starts, counts, origins, jhi, out, cot]
+
+
+def segment_mask(starts, counts, pc):
+    mask = torch.zeros(pc, dtype=torch.bool)
+    for s, c in zip(starts.tolist(), counts.tolist()):
+        mask[s:s + -(-c // 128) * 128] = True
+    return mask
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-12))
+
+
+def poisoned(shape, dtype, device):
+    """The address of a freed NaN-filled block of ``shape``: the caching
+    allocator hands it to the next allocation of that size, so a kernel's
+    torch.empty output starts out as NaN."""
+    x = torch.full(shape, float("nan"), dtype=dtype, device=device)
+    ptr = x.data_ptr()
+    del x
+    return ptr
+
+
+@pytest.mark.parametrize("case", ["default", "dense_saturating",
+                                  "eight_channels", "visible_cap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain(cuda, case, dtype):
+    """K2 against its plain version: every gradient row within 1e-4
+    relative L2 (f32 slab) or 1e-2 (bf16), rows past jhi exactly zero,
+    on a slab that held NaN before the kernel wrote it."""
+    scene_kw, cfg_kw = CASES[case]
+    sc = make_scene(4, **scene_kw)
+    cfg = RasterConfig(use_pallas=True, **cfg_kw)
+    C = sc[4].shape[1]
+    args = bwd_inputs(sc, cfg)
+    ref = hopper_raster.bwd_pairwalk_plain(*args, C, cfg, dtype).float()
+    args_d = [a.to(cuda) for a in args]
+    ptr = poisoned(ref.shape, dtype, cuda)
+    before = hopper_raster.bwd_pairwalk.launches
+    got = hopper_raster.bwd_pairwalk(*args_d, C, cfg, dtype)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr and got.dtype == dtype
+    assert hopper_raster.bwd_pairwalk.launches == before + 1
+    mask = segment_mask(args[1], args[2], ref.shape[0])
+    g, r = got.float().cpu()[mask], ref[mask]
+    assert bool(torch.isfinite(g).all())
+    limit = 1e-4 if dtype == torch.float32 else 1e-2
+    for row in range(hopper_raster.N_FIXED + C):
+        assert rel_l2(g[:, row], r[:, row]) <= limit, row
+    assert bool((g[:, hopper_raster.N_FIXED + C:] == 0).all())
+    zero = ~segment_mask(args[1], args[1] * 0 + (args[4] + 1) * 128,
+                         ref.shape[0]) & mask
+    assert bool((got.float().cpu()[zero] == 0).all())
+
+
+def _runs(seed, K, long_run, drop):
+    """Sorted pair ids with run lengths from ``seed`` (rank 3's run is
+    ``long_run`` long), a sentinel tail of id K, and run ends; with
+    ``drop``, some ranks lose pairs after their counts were taken (the
+    reference's dropped-pair case)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 12, K)
+    counts[3] = long_run
+    ids = np.repeat(np.arange(K), counts)
+    if drop:
+        keep = rng.uniform(size=ids.shape[0]) > 0.1
+        ids = ids[keep]
+    ids = np.concatenate([ids, np.full(300, K)])
+    ends = np.cumsum(counts).astype(np.int32)
+    return ids.astype(np.int32), ends
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_reduce_kernel_matches_plain(cuda, dtype, drop):
+    """K3 against its plain version on a run longer than any block (20,000
+    pairs of one rank) and, with ``drop``, on partial runs; the slab's
+    sentinel tail is NaN and reaches no rank."""
+    K, rows = 500, 16
+    ids, ends = _runs(5, K, 20_000, drop)
+    pc = ids.shape[0]
+    rng = np.random.default_rng(6)
+    pair_idx = torch.from_numpy(rng.permutation(ids))
+    slab = torch.from_numpy(rng.normal(size=(pc, rows)).astype(np.float32))
+    slab[pair_idx == K] = float("nan")
+    slab = slab.to(dtype)
+    si, perm = torch.sort(pair_idx, stable=True)
+    args = [slab, perm.int(), si.int(), torch.from_numpy(ends)]
+    ref = hopper_raster.seg_reduce_plain(*args, 1 << 15)
+    before = hopper_raster.seg_reduce.launches
+    got = hopper_raster.seg_reduce(*[a.to(cuda) for a in args], 1 << 15)
+    torch.cuda.synchronize()
+    assert hopper_raster.seg_reduce.launches == before + 1
+    got = got.cpu()
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
+    assert rel_l2(got, ref) <= 1e-5
+    if drop:
+        # run ends that miss their own run give zero rows
+        assert bool((ref == 0).all(dim=1).any())
+    else:
+        assert float(ref[3].abs().max()) > 0    # the long run was summed
+
+
+def test_rasterize_grads_on_card_match_cpu(cuda):
+    """The whole backward through rasterize on the card (K2 and K3 on the
+    main path) against the CPU path: every gradient within 1e-3 relative
+    L2, f32 slabs on both."""
+    old = hopper_raster.GRAD_SLAB_DTYPE
+    hopper_raster.GRAD_SLAB_DTYPE = torch.float32
+    try:
+        grads = {}
+        for dev in ("cpu", cuda):
+            sc = [x.to(dev).requires_grad_(True) for x in make_scene(7)]
+            cam = Camera.create(np.eye(4, dtype=np.float32), 50.0, 50.0,
+                                W / 2, H / 2, W, H, device=dev)
+            out = rasterize(*sc, cam, RasterConfig(use_pallas=True))
+            loss = (out.image ** 2).mean() + 0.05 * out.depth.mean()
+            grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(loss, sc)]
+    finally:
+        hopper_raster.GRAD_SLAB_DTYPE = old
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert rel_l2(a, b) <= 1e-3

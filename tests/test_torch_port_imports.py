@@ -47,7 +47,14 @@ def test_port_imports_pull_in_no_jax():
     for mod in ("splatloc_tpu_torch.raster.hopper_raster",
                 "splatloc_tpu_torch.raster.pairs",
                 "splatloc_tpu_torch.scene.ply", "splatloc_tpu_torch.convert",
-                "splatloc_tpu_torch.build", "chip_smoke"):
+                "splatloc_tpu_torch.build", "splatloc_tpu_torch.knn.knn",
+                "splatloc_tpu_torch.scene.densify",
+                "splatloc_tpu_torch.scene.init_rgbd",
+                "splatloc_tpu_torch.scene.optim",
+                "splatloc_tpu_torch.train.losses",
+                "splatloc_tpu_torch.train.mapping",
+                "splatloc_tpu_torch.train.checkpoint",
+                "splatloc_tpu_torch.cli.config", "chip_smoke"):
         assert mod in report["imported"], mod
 
 
