@@ -31,15 +31,28 @@
 // (~16 f32 operations with one expf each) until it saturates; the pair
 // table is read once and the output written once. At the main path's size
 // (100k Gaussians, 640x480) that is ~50 M evaluations against ~19 MB moved:
-// ~0.012 ms of f32 work against ~0.006 ms of memory traffic on an H100.
+// ~0.012 ms of f32 work against ~0.006 ms of memory traffic on an H100. In
+// practice the walk is bound by the latency of the longest tiles: a block
+// walks its tile's pairs one after another, and at that size the tenth of
+// the tiles with the most pairs (~500 each) takes most of the launch's
+// time on its own.
 //
-// Design (the simple first version): one CTA per tile, one thread per
-// pixel. The block stages STAGE pairs at a time into shared memory,
-// computing each pair's coefficient limbs and keep-eps once for all pixels,
-// then every thread composites the staged pairs in order. The block leaves
-// the segment once no pixel is still live (__syncthreads_count). Not yet
-// tuned: no double buffering of the staging, no TMA, one block per tile
-// whatever the segment length.
+// Design: one CTA per tile, two horizontally adjacent pixels per thread
+// (128 threads for a 16x16 tile), so each shared-memory read of a pair
+// serves two pixels. The segment is walked in stages of STAGE pairs. The
+// raw gpair columns of the next stages arrive by cp.async, issued by every
+// thread, into a two-buffer ring while the current stage is walked; each
+// stage's raw columns are then turned, by all threads at once, into
+// pair-major records: an evaluation record (the coefficients' limbs,
+// keep-eps, opacity and alpha_cut, read as four float4) and an attribute
+// record (the channels and depth, read only when a pixel blends). A warp
+// evaluates the powers of UNROLL pairs at once, so that their dependent
+// chains interleave, and skips the expf and the blend of a pair that is
+// below alpha_cut at all of its live pixels (alpha is certainly cut there,
+// see pair_power.cuh). Every pixel keeps the order of roundings of the walk
+// above, pair by pair, so neither the pixels per thread nor the pairs per
+// step nor the skip move a bit of the output. The block leaves the segment
+// once no pixel is still live (__syncthreads_count).
 
 #include <cuda_runtime.h>
 
@@ -49,126 +62,241 @@ namespace {
 
 using namespace pairwalk;
 
-constexpr int STAGE = 256;              // pairs staged per step
-
-// Shared-memory layout, each row STAGE floats: 0..5 the coefficients' bf16
-// limbs, 6..11 their remainders, 12 keep_eps, 13 opacity, 14..14+C-1
-// channels, 14+C depth.
-constexpr int S_HI = 0, S_LO = 6, S_EPS = 12, S_OP = 13, S_ATTR = 14;
+constexpr int STAGE = 64;   // pairs per stage (divides CHUNK)
+constexpr int PIX = 2;      // pixels per thread: pix0 and pix0 + 1 of a row
+constexpr int UNROLL = 2;   // pairs whose powers a warp evaluates together
 
 template <int MAXC>
-__global__ void fwd_pairwalk_kernel(const float* __restrict__ gpair,
-                                    long long pc,
-                                    const int* __restrict__ starts,
-                                    const int* __restrict__ counts,
-                                    const int* __restrict__ origins,
-                                    float* __restrict__ out,
-                                    int n_channels, int ts, float alpha_max,
-                                    float alpha_min, float t_eps) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(MAX_THREADS)
+    fwd_pairwalk_kernel(const float* __restrict__ gpair, long long pc,
+                        const int* __restrict__ starts,
+                        const int* __restrict__ counts,
+                        const int* __restrict__ origins,
+                        float* __restrict__ out, int n_channels, int ts,
+                        float alpha_max, float alpha_min, float t_eps) {
+  constexpr int CA = attr_stride<MAXC>();
+  extern __shared__ float4 smem4[];
+  EvalRec* rec = reinterpret_cast<EvalRec*>(smem4);     // [STAGE]
+  float* attr = reinterpret_cast<float*>(rec + STAGE);  // [STAGE][CA]
+  float* raw = attr + STAGE * CA;       // 2 x [N_FIXED + C][STAGE]
+  const int C = n_channels;
+  const int n_rows = N_FIXED + C;
   const int t = blockIdx.x;
   const int P = ts * ts;
-  const int pix = threadIdx.x;
+  const int pix0 = PIX * threadIdx.x;
   const int count = counts[t];
   const int start = starts[t];
   const float ox = static_cast<float>(origins[2 * t]);
   const float oy = static_cast<float>(origins[2 * t + 1]);
-  const float p = static_cast<float>(pix % ts);
-  const float q = static_cast<float>(pix / ts);
-  const float pp = p * p, pq = p * q, qq = q * q;   // small integers: exact
+  const float q = static_cast<float>(pix0 / ts);
+  const float qq = q * q;                  // small integers: exact
+  float p[PIX], pp[PIX], pq[PIX];
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    p[j] = static_cast<float>(pix0 % ts + j);
+    pp[j] = p[j] * p[j];
+    pq[j] = p[j] * q;
+  }
   const float tm1 = static_cast<float>(ts - 1);
 
-  float acc[MAXC];
+  float acc[PIX][MAXC], acc_depth[PIX], acc_w[PIX], T[PIX], n_contrib[PIX];
+  bool done[PIX];
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) acc[c] = 0.f;
-  float acc_depth = 0.f, acc_w = 0.f;
-  float T = 1.f;
-  float n_contrib = -1.f;
-  bool done = false;
-
-  // empty tiles (count == 0, start possibly clamped to the capacity) read
-  // nothing: the loop body never runs
-  for (int base = 0; base < count; base += STAGE) {
-    const int n = min(STAGE, count - base);
-    __syncthreads();                     // previous stage fully consumed
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      const long long col = static_cast<long long>(start) + base + k;
-      const float ex = __fsub_rn(gpair[R_X * pc + col], ox);
-      const float ey = __fsub_rn(gpair[R_Y * pc + col], oy);
-      smem[S_EPS * STAGE + k] = power_limbs(
-          ex, ey, gpair[R_CA * pc + col], gpair[R_CB * pc + col],
-          gpair[R_CC * pc + col], tm1, smem + S_HI * STAGE + k,
-          smem + S_LO * STAGE + k, STAGE);
-      smem[S_OP * STAGE + k] = gpair[R_OP * pc + col];
-      for (int c = 0; c < n_channels; ++c)
-        smem[(S_ATTR + c) * STAGE + k] = gpair[(N_FIXED + c) * pc + col];
-      smem[(S_ATTR + n_channels) * STAGE + k] = gpair[R_DEPTH * pc + col];
-    }
-    __syncthreads();
-    if (!done) {
-      for (int k = 0; k < n; ++k) {
-        const float power = eval_power(smem + S_HI * STAGE + k,
-                                       smem + S_LO * STAGE + k, STAGE, p, q,
-                                       pp, pq, qq);
-        const float pm =
-            power <= smem[S_EPS * STAGE + k] ? fminf(power, 0.f) : -40.f;
-        const float raw = __fmul_rn(smem[S_OP * STAGE + k], expf(pm));
-        const float alpha = raw >= alpha_min ? fminf(raw, alpha_max) : 0.f;
-        if (alpha == 0.f) continue;      // weight 0, T unchanged
-        const float w = __fmul_rn(alpha, T);
-        const float test_t = __fsub_rn(T, w);
-        if (test_t < t_eps) {            // saturated: nothing more blends
-          done = true;
-          break;
-        }
+  for (int j = 0; j < PIX; ++j) {
 #pragma unroll
-        for (int c = 0; c < MAXC; ++c)
-          if (c < n_channels)
-            acc[c] = __fmaf_rn(w, smem[(S_ATTR + c) * STAGE + k], acc[c]);
-        acc_depth =
-            __fmaf_rn(w, smem[(S_ATTR + n_channels) * STAGE + k], acc_depth);
-        acc_w = __fadd_rn(acc_w, w);
-        T = test_t;
-        n_contrib = static_cast<float>(start + base + k);
-      }
-    }
-    if (__syncthreads_count(!done) == 0) break;
+    for (int c = 0; c < MAXC; ++c) acc[j][c] = 0.f;
+    acc_depth[j] = 0.f;
+    acc_w[j] = 0.f;
+    T[j] = 1.f;
+    n_contrib[j] = -1.f;
+    done[j] = false;
   }
 
-  float* o = out + static_cast<long long>(t) * (n_channels + 4) * P;
+  // empty tiles (count == 0, start possibly clamped to the capacity) read
+  // nothing. Stages are whole STAGE-pair runs of the 128-aligned segment;
+  // pairs past count are staged but not walked.
+  const int n_stages = (count + STAGE - 1) / STAGE;
+  if (n_stages > 0) stage_rows<STAGE>(raw, gpair, pc, start, n_rows);
+  cp_async_commit();
+  if (n_stages > 1)
+    stage_rows<STAGE>(raw + n_rows * STAGE, gpair, pc, start + STAGE, n_rows);
+  cp_async_commit();
+  cp_async_wait_one();
+  __syncthreads();
+  for (int i = 0; i < n_stages; ++i) {
+    const int base = i * STAGE;
+    const int n = min(STAGE, count - base);
+    float* buf = raw + (i & 1) * n_rows * STAGE;
+    // records: evaluation records on one half of the jobs, attribute
+    // records on the other
+    for (int job = threadIdx.x; job < 2 * STAGE; job += blockDim.x) {
+      const int k = job % STAGE;
+      if (job < STAGE) {
+        make_eval_rec(__fsub_rn(buf[R_X * STAGE + k], ox),
+                      __fsub_rn(buf[R_Y * STAGE + k], oy),
+                      buf[R_CA * STAGE + k], buf[R_CB * STAGE + k],
+                      buf[R_CC * STAGE + k], buf[R_OP * STAGE + k], tm1,
+                      alpha_min, rec + k);
+      } else {
+        float* a = attr + k * CA;
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c)
-    if (c < n_channels) o[c * P + pix] = acc[c];
-  o[n_channels * P + pix] = acc_depth;
-  o[(n_channels + 1) * P + pix] = acc_w;
-  o[(n_channels + 2) * P + pix] = n_contrib;
-  o[(n_channels + 3) * P + pix] = T;
+        for (int c = 0; c < CA; ++c)
+          a[c] = c < C ? buf[(N_FIXED + c) * STAGE + k]
+                       : (c == MAXC ? buf[R_DEPTH * STAGE + k] : 0.f);
+      }
+    }
+    __syncthreads();                     // records ready, buf free
+    if (i + 2 < n_stages)
+      stage_rows<STAGE>(buf, gpair, pc, start + base + 2 * STAGE, n_rows);
+    cp_async_commit();
+
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) live |= !done[j];
+    // the warp walks while one of its pixels is live (warp-uniform, for
+    // the votes)
+    for (int k0 = 0; k0 < n && __any_sync(FULL, live); k0 += UNROLL) {
+      // the powers of UNROLL pairs at once, so that their evaluations
+      // interleave (a pair past n repeats pair n - 1 and is not near)
+      EvalRec r[UNROLL];
+      float power[UNROLL][PIX];
+      bool near[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        r[u] = rec[min(k0 + u, n - 1)];
+        near[u] = false;
+#pragma unroll
+        for (int j = 0; j < PIX; ++j) {
+          power[u][j] = eval_power(r[u], p[j], q, pp[j], pq[j], qq);
+          near[u] |= !done[j] && !(power[u][j] < r[u].d.z);
+        }
+        near[u] &= k0 + u < n;
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        // below alpha_cut for every live pixel of the warp: alpha 0 for
+        // all of them, nothing changes
+        if (!__any_sync(FULL, near[u])) continue;
+        const int k = k0 + u;
+        // every pixel's alpha, without branches, so that the pixels'
+        // evaluations interleave; a done pixel's is not used
+        float alpha[PIX];
+#pragma unroll
+        for (int j = 0; j < PIX; ++j) {
+          const float pw = power[u][j];
+          const float pm = pw <= r[u].d.x ? fminf(pw, 0.f) : -40.f;
+          const float raw_a = __fmul_rn(r[u].d.y, expf(pm));
+          alpha[j] = raw_a >= alpha_min ? fminf(raw_a, alpha_max) : 0.f;
+        }
+        float w[PIX];
+        bool blend[PIX];
+        bool any = false;
+        live = false;
+#pragma unroll
+        for (int j = 0; j < PIX; ++j) {
+          // alpha 0: weight 0, T unchanged; T - w below t_eps: saturated,
+          // nothing more blends
+          w[j] = __fmul_rn(alpha[j], T[j]);
+          const float test_t = __fsub_rn(T[j], w[j]);
+          const bool act = !done[j] && alpha[j] != 0.f;
+          const bool saturated = act && test_t < t_eps;
+          blend[j] = act && !saturated;
+          done[j] = done[j] || saturated;
+          T[j] = blend[j] ? test_t : T[j];
+          any |= blend[j];
+          live |= !done[j];
+        }
+        if (!any) continue;
+        float a[CA];
+        const float4* a4 = reinterpret_cast<const float4*>(attr + k * CA);
+#pragma unroll
+        for (int g = 0; g < CA / 4; ++g) {
+          const float4 x = a4[g];
+          a[4 * g] = x.x;
+          a[4 * g + 1] = x.y;
+          a[4 * g + 2] = x.z;
+          a[4 * g + 3] = x.w;
+        }
+#pragma unroll
+        for (int j = 0; j < PIX; ++j) {
+          if (!blend[j]) continue;
+#pragma unroll
+          for (int c = 0; c < MAXC; ++c)
+            acc[j][c] = __fmaf_rn(w[j], a[c], acc[j][c]);
+          acc_depth[j] = __fmaf_rn(w[j], a[MAXC], acc_depth[j]);
+          acc_w[j] = __fadd_rn(acc_w[j], w[j]);
+          n_contrib[j] = static_cast<float>(start + base + k);
+        }
+      }
+    }
+    cp_async_wait_one();                 // stage i + 1 landed (own pieces)
+    if (__syncthreads_count(live) == 0) break;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  float* o = out + static_cast<long long>(t) * (C + 4) * P + pix0;
+  float v[PIX];
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c >= C) break;
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) v[j] = acc[j][c];
+    store_pixels(o + c * P, v);
+  }
+  store_pixels(o + C * P, acc_depth);
+  store_pixels(o + (C + 1) * P, acc_w);
+  store_pixels(o + (C + 2) * P, n_contrib);
+  store_pixels(o + (C + 3) * P, T);
 }
 
 using WalkKernel = void (*)(const float*, long long, const int*, const int*,
                            const int*, float*, int, int, float, float, float);
 
 // the instantiation whose register accumulators cover n_channels
-WalkKernel kernel_for(int n_channels) {
-  if (n_channels <= 4) return fwd_pairwalk_kernel<4>;
-  if (n_channels <= 8) return fwd_pairwalk_kernel<8>;
-  if (n_channels <= 16) return fwd_pairwalk_kernel<16>;
-  return fwd_pairwalk_kernel<MAX_CHANNELS>;
+template <int MAXC>
+WalkKernel kernel_of() {
+  return fwd_pairwalk_kernel<MAXC>;
 }
 
-size_t smem_bytes(int n_channels) {
-  return static_cast<size_t>(S_ATTR + n_channels + 1) * STAGE *
+template <int MAXC>
+size_t smem_of(int n_channels) {
+  return (static_cast<size_t>(STAGE) * (16 + attr_stride<MAXC>()) +
+          2 * static_cast<size_t>(N_FIXED + n_channels) * STAGE) *
          sizeof(float);
 }
 
+WalkKernel kernel_for(int n_channels, size_t* smem) {
+#define FWD_PICK(M)                   \
+  {                                   \
+    *smem = smem_of<M>(n_channels);   \
+    return kernel_of<M>();            \
+  }
+  if (n_channels <= 4) FWD_PICK(4);
+  if (n_channels <= 8) FWD_PICK(8);
+  if (n_channels <= 16) FWD_PICK(16);
+  FWD_PICK(MAX_CHANNELS);
+#undef FWD_PICK
+}
+
+// tile sizes the layout takes: whole pixel pairs per row, whole warps
 bool valid(int n_channels, int ts) {
   return n_channels >= 1 && n_channels <= MAX_CHANNELS && ts >= 1 &&
-         ts * ts <= 1024;
+         ts % PIX == 0 && (ts * ts) % (32 * PIX) == 0 &&
+         ts * ts <= PIX * MAX_THREADS;
+}
+
+cudaError_t prepare(WalkKernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). gpair's
+// segments start at multiples of 128 and span multiples of 128 pairs
+// inside its PC columns, PC % 4 == 0 and gpair 16-byte aligned.
 extern "C" int fwd_pairwalk_launch(const float* gpair, long long pc,
                                    const int* starts, const int* counts,
                                    const int* origins, float* out,
@@ -177,20 +305,29 @@ extern "C" int fwd_pairwalk_launch(const float* gpair, long long pc,
                                    float t_eps, void* stream) {
   if (n_tiles <= 0) return 0;
   if (!valid(n_channels, ts)) return static_cast<int>(cudaErrorInvalidValue);
-  kernel_for(n_channels)<<<n_tiles, ts * ts, smem_bytes(n_channels),
-                           static_cast<cudaStream_t>(stream)>>>(
+  size_t smem = 0;
+  const WalkKernel kernel = kernel_for(n_channels, &smem);
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_tiles, ts * ts / PIX, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       gpair, pc, starts, counts, origins, out, n_channels, ts, alpha_max,
       alpha_min, t_eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch's dynamic shared memory per block and how many blocks of it
-// fit on one SM (registers and shared memory together). Returns a CUDA
-// error code (0 = ok).
-extern "C" int fwd_pairwalk_info(int n_channels, int ts, int* smem,
-                                 int* blocks_per_sm) {
+// The launch's threads and dynamic shared memory per block and how many
+// blocks of it fit on one SM (registers and shared memory together).
+// Returns a CUDA error code (0 = ok).
+extern "C" int fwd_pairwalk_info(int n_channels, int ts, int* threads,
+                                 int* smem, int* blocks_per_sm) {
   if (!valid(n_channels, ts)) return static_cast<int>(cudaErrorInvalidValue);
-  *smem = static_cast<int>(smem_bytes(n_channels));
+  size_t bytes = 0;
+  const WalkKernel kernel = kernel_for(n_channels, &bytes);
+  const cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = ts * ts / PIX;
+  *smem = static_cast<int>(bytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel_for(n_channels), ts * ts, smem_bytes(n_channels)));
+      blocks_per_sm, kernel, *threads, bytes));
 }

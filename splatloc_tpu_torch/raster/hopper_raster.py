@@ -52,6 +52,10 @@ PLAIN_TILE_BATCH = 64
 _POWER_KEEP_EPS = 1e-5
 # most channels the kernel takes (its accumulators live in registers)
 MAX_CHANNELS = 24
+# tile sizes the CUDA walks take: whole warps of threads that each take one
+# or two horizontally adjacent pixels (csrc/*_pairwalk.cu), at most 512
+# threads a block
+CUDA_TILE_SIZES = (8, 16, 24, 32)
 
 
 def _fma(a, b, c):
@@ -317,34 +321,52 @@ def _require_cuda(name, dev, tensors):
             raise ValueError(f"{tname} must be contiguous")
 
 
+def _check_walk_layout(gpair, cfg: RasterConfig):
+    """What the CUDA walks take beyond the plain versions: gpair rows that
+    start 16 bytes apart (their stages arrive by 16-byte copies), and one of
+    CUDA_TILE_SIZES."""
+    if gpair.shape[1] % 4 or gpair.data_ptr() % 16:
+        raise ValueError(f"gpair [{gpair.shape[0]}, {gpair.shape[1]}] at "
+                         f"{gpair.data_ptr():#x}: the CUDA walks need PC % 4 "
+                         f"== 0 and a 16-byte aligned table")
+    if cfg.tile_size not in CUDA_TILE_SIZES:
+        raise ValueError(f"tile_size {cfg.tile_size}: the CUDA walks take "
+                         f"whole warps of pixel pairs, at most 512 threads "
+                         f"a block: tile sizes {CUDA_TILE_SIZES}")
+
+
 _LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_INT_P = ctypes.POINTER(ctypes.c_int)
 
 
 def _kernel_lib():
     lib = build.load("fwd_pairwalk")
     lib.fwd_pairwalk_launch.argtypes = _LAUNCH_ARGTYPES
     lib.fwd_pairwalk_launch.restype = ctypes.c_int
-    lib.fwd_pairwalk_info.argtypes = [ctypes.c_int, ctypes.c_int,
-                                      ctypes.POINTER(ctypes.c_int),
-                                      ctypes.POINTER(ctypes.c_int)]
+    lib.fwd_pairwalk_info.argtypes = [ctypes.c_int] * 2 + [_INT_P] * 3
     lib.fwd_pairwalk_info.restype = ctypes.c_int
     return lib
+
+
+def _launch_info(name, call) -> dict:
+    """Runs a kernel's ``*_info`` C function, ``call(threads, smem,
+    blocks)`` on three int out-pointers, into a dict."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = call(*(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"),
+                    (x.value for x in out)))
 
 
 def fwd_pairwalk_info(n_channels: int, cfg: RasterConfig) -> dict:
     """The kernel's launch shape on the current CUDA device: threads and
     dynamic shared memory per block, and the blocks that fit on one SM."""
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = _kernel_lib().fwd_pairwalk_info(n_channels, cfg.tile_size,
-                                          ctypes.byref(smem),
-                                          ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"fwd_pairwalk_info failed: CUDA error {err}")
-    return {"threads": cfg.tile_size ** 2, "smem_bytes": smem.value,
-            "blocks_per_sm": blocks.value}
+    return _launch_info("fwd_pairwalk_info", functools.partial(
+        _kernel_lib().fwd_pairwalk_info, n_channels, cfg.tile_size))
 
 
 def fwd_pairwalk(gpair, starts, counts, origins, n_channels: int,
@@ -354,7 +376,8 @@ def fwd_pairwalk(gpair, starts, counts, origins, n_channels: int,
     On CUDA tensors it launches the kernel ``csrc/fwd_pairwalk.cu`` on the
     current stream and adds one to ``fwd_pairwalk.launches``; on CPU
     tensors it runs the plain version. Any other device, a wrong dtype or
-    shape, or a non-contiguous tensor raises."""
+    shape, or a non-contiguous tensor raises, and on CUDA so do a tile size
+    outside CUDA_TILE_SIZES and a misaligned table (_check_walk_layout)."""
     dev = gpair.device
     _check_inputs(gpair, starts, counts, origins, n_channels, cfg)
     if dev.type == "cpu":
@@ -362,6 +385,7 @@ def fwd_pairwalk(gpair, starts, counts, origins, n_channels: int,
                                   cfg)
     _require_cuda("fwd_pairwalk", dev, {"gpair": gpair, "starts": starts,
                                         "counts": counts, "origins": origins})
+    _check_walk_layout(gpair, cfg)
     launch = _kernel_lib().fwd_pairwalk_launch
     T = starts.shape[0]
     P = cfg.tile_size * cfg.tile_size
@@ -565,7 +589,18 @@ def _bwd_lib():
     lib = build.load("bwd_pairwalk")
     lib.bwd_pairwalk_launch.argtypes = _BWD_ARGTYPES
     lib.bwd_pairwalk_launch.restype = ctypes.c_int
+    lib.bwd_pairwalk_info.argtypes = [ctypes.c_int] * 3 + [_INT_P] * 3
+    lib.bwd_pairwalk_info.restype = ctypes.c_int
     return lib
+
+
+def bwd_pairwalk_info(n_channels: int, cfg: RasterConfig,
+                      slab_dtype=None) -> dict:
+    """The backward kernel's launch shape on the current CUDA device, as
+    ``fwd_pairwalk_info``."""
+    bf16 = int((slab_dtype or GRAD_SLAB_DTYPE) == torch.bfloat16)
+    return _launch_info("bwd_pairwalk_info", functools.partial(
+        _bwd_lib().bwd_pairwalk_info, n_channels, cfg.tile_size, bf16))
 
 
 def bwd_pairwalk(gpair, starts, counts, origins, jhi, fwd_out, cot,
@@ -576,7 +611,8 @@ def bwd_pairwalk(gpair, starts, counts, origins, jhi, fwd_out, cot,
     stream into a slab from ``torch.empty`` and adds one to
     ``bwd_pairwalk.launches``; on CPU tensors it runs the plain version.
     Any other device, a wrong dtype or shape, or a non-contiguous tensor
-    raises."""
+    raises, and on CUDA so do a tile size outside CUDA_TILE_SIZES and a
+    misaligned table (_check_walk_layout)."""
     dtype = slab_dtype or GRAD_SLAB_DTYPE
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"slab dtype {dtype}: float32 or bfloat16")
@@ -589,6 +625,7 @@ def bwd_pairwalk(gpair, starts, counts, origins, jhi, fwd_out, cot,
     _require_cuda("bwd_pairwalk", dev, {
         "gpair": gpair, "starts": starts, "counts": counts,
         "origins": origins, "jhi": jhi, "fwd_out": fwd_out, "cot": cot})
+    _check_walk_layout(gpair, cfg)
     rows, PC = gpair.shape
     T = starts.shape[0]
     slab = torch.empty((PC, rows), dtype=dtype, device=dev)

@@ -73,6 +73,15 @@ CASES = {
     "eight_channels": (dict(channels=8), dict()),
     "tile_8": (dict(), dict(tile_size=8)),
     "visible_cap": (dict(), dict(visible_cap=128)),
+    # segments of up to ~360 pairs: many 64-pair stages, most ending mid-stage
+    "long_segments": (dict(n=1200), dict()),
+    # the other tile sizes the CUDA walks take
+    "tile_24": (dict(), dict(tile_size=24)),
+    "tile_32": (dict(n=1200), dict(tile_size=32)),
+    # one channel, and the instantiations for 9-16 and 17-24 channels
+    "one_channel": (dict(channels=1), dict()),
+    "sixteen_channels": (dict(channels=16), dict()),
+    "max_channels": (dict(channels=24), dict()),
 }
 
 
@@ -167,8 +176,11 @@ def test_render_on_card_matches_cpu(cuda):
 
 def bwd_inputs(sc, cfg, seed=0):
     """The backward walk's inputs on the CPU: the forward's, its output,
-    a seeded cotangent and jhi."""
+    a seeded cotangent and jhi. A table of more than 32 rows (24 channels
+    and the rect rows) is cut to its first 32, which hold every row the
+    walks read."""
     gpair, starts, counts, origins = walk_inputs(sc, cfg)
+    gpair = gpair[:32].contiguous()
     C = sc[4].shape[1]
     out = hopper_raster.fwd_pairwalk_plain(gpair, starts, counts, origins,
                                            C, cfg)
@@ -199,18 +211,11 @@ def poisoned(shape, dtype, device):
     return ptr
 
 
-@pytest.mark.parametrize("case", ["default", "dense_saturating",
-                                  "eight_channels", "visible_cap"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_kernel_matches_plain(cuda, case, dtype):
-    """K2 against its plain version: every gradient row within 1e-4
-    relative L2 (f32 slab) or 1e-2 (bf16), rows past jhi exactly zero,
-    on a slab that held NaN before the kernel wrote it."""
-    scene_kw, cfg_kw = CASES[case]
-    sc = make_scene(4, **scene_kw)
-    cfg = RasterConfig(use_pallas=True, **cfg_kw)
-    C = sc[4].shape[1]
-    args = bwd_inputs(sc, cfg)
+def assert_bwd_matches_plain(args, C, cfg, dtype, cuda):
+    """K2 on ``args`` (CPU tensors) against its plain version, into a slab
+    that held NaN: every gradient row within 1e-4 relative L2 (f32 slab) or
+    1e-2 (bf16), pad rows and rows past jhi exactly zero. Returns the
+    kernel's slab on the CPU."""
     ref = hopper_raster.bwd_pairwalk_plain(*args, C, cfg, dtype).float()
     args_d = [a.to(cuda) for a in args]
     ptr = poisoned(ref.shape, dtype, cuda)
@@ -229,6 +234,81 @@ def test_bwd_kernel_matches_plain(cuda, case, dtype):
     zero = ~segment_mask(args[1], args[1] * 0 + (args[4] + 1) * 128,
                          ref.shape[0]) & mask
     assert bool((got.float().cpu()[zero] == 0).all())
+    return got.cpu()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain(cuda, case, dtype):
+    """K2 against its plain version (assert_bwd_matches_plain) on each
+    case's scene."""
+    scene_kw, cfg_kw = CASES[case]
+    sc = make_scene(4, **scene_kw)
+    cfg = RasterConfig(use_pallas=True, **cfg_kw)
+    C = sc[4].shape[1]
+    assert_bwd_matches_plain(bwd_inputs(sc, cfg), C, cfg, dtype, cuda)
+
+
+def test_bwd_kernel_uneven_warps_jhi_and_empty_tiles(cuda):
+    """K2 where the warps of a tile stop at very different pairs (the warp
+    skip), on a tile whose jhi is -1 though it has pairs (its whole segment
+    is zero-filled) and beside tiles with no pairs."""
+    sc = make_scene(8, n=1200)
+    cfg = RasterConfig(use_pallas=True)
+    C = 4
+    args = bwd_inputs(sc, cfg)
+    gpair, starts, counts, origins, jhi, out, cot = args
+    out = out.clone()
+    nc = out[:, C + 2]                                   # [T, P] view
+    # warp w (64 pixels) keeps the first fraction f_w of its pixels' walk;
+    # the last pixel of each warp blends nothing
+    frac = torch.tensor([1.0, 0.5, 0.1, 0.0]).repeat_interleave(64)
+    walked = torch.clamp(nc - starts[:, None], min=-1)
+    nc.copy_(torch.where(nc >= 0, starts[:, None] + torch.floor(
+        walked * frac[None, :]), nc))
+    nc.view(-1, 4, 64)[:, :, -1] = -1
+    counts = counts.clone()
+    counts[0] = 0                                        # an empty tile
+    jhi = hopper_raster._jhi(out, starts, counts, C)
+    busy = int(torch.argmax(counts))
+    assert busy != 0 and int(jhi[busy]) >= 1
+    jhi[busy] = -1
+    args = [gpair, starts, counts, origins, jhi, out, cot]
+    got = assert_bwd_matches_plain(args, C, cfg, torch.float32, cuda)
+    s0 = int(starts[busy])
+    assert bool((got[s0:s0 + -(-int(counts[busy]) // 128) * 128] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_repeats_bit_for_bit(cuda, dtype):
+    """Two K2 launches on the same inputs write the same slab, bit for
+    bit (no atomics, every sum in a fixed order)."""
+    sc = make_scene(9, n=1200)
+    cfg = RasterConfig(use_pallas=True)
+    args = [a.to(cuda) for a in bwd_inputs(sc, cfg)]
+    a = hopper_raster.bwd_pairwalk(*args, 4, cfg, dtype)
+    b = hopper_raster.bwd_pairwalk(*args, 4, cfg, dtype)
+    mask = segment_mask(args[1].cpu(), args[2].cpu(), a.shape[0]).to(cuda)
+    assert torch.equal(a[mask], b[mask])
+
+
+@pytest.mark.parametrize("ts", [4, 12, 20])
+def test_walks_reject_tile_sizes_they_do_not_take(cuda, ts):
+    """On the card the walks take tile sizes 8, 16, 24 and 32 (two pixels
+    of a row per thread, whole warps) and raise for the rest, before any
+    launch; the CPU path takes them."""
+    sc = make_scene(10, n=100)
+    cfg = RasterConfig(use_pallas=True, tile_size=ts)
+    args = bwd_inputs(sc, cfg)
+    before = (hopper_raster.fwd_pairwalk.launches,
+              hopper_raster.bwd_pairwalk.launches)
+    d = [a.to(cuda) for a in args]
+    with pytest.raises(ValueError, match="tile_size"):
+        hopper_raster.fwd_pairwalk(*d[:4], 4, cfg)
+    with pytest.raises(ValueError, match="tile_size"):
+        hopper_raster.bwd_pairwalk(*d, 4, cfg)
+    assert (hopper_raster.fwd_pairwalk.launches,
+            hopper_raster.bwd_pairwalk.launches) == before
 
 
 def _runs(seed, K, long_run, drop):

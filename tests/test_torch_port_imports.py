@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing it (and chip_smoke.py) pulls in
-no JAX, Flax or splatloc_tpu module, at run time or in its source."""
+"""The PyTorch port stands alone: importing it (and chip_smoke.py,
+kernel_ab.py) pulls in no JAX, Flax or splatloc_tpu module, at run time or
+in its source."""
 import ast
 import json
 import os
@@ -22,8 +23,8 @@ for m in pkgutil.walk_packages(splatloc_tpu_torch.__path__,
                                "splatloc_tpu_torch."):
     names.append(m.name)
     importlib.import_module(m.name)
-import chip_smoke
-names.append("chip_smoke")
+import chip_smoke, kernel_ab
+names += ["chip_smoke", "kernel_ab"]
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in {FORBIDDEN})
 print(json.dumps({"imported": names, "forbidden": bad}))
@@ -54,12 +55,13 @@ def test_port_imports_pull_in_no_jax():
                 "splatloc_tpu_torch.train.losses",
                 "splatloc_tpu_torch.train.mapping",
                 "splatloc_tpu_torch.train.checkpoint",
-                "splatloc_tpu_torch.cli.config", "chip_smoke"):
+                "splatloc_tpu_torch.cli.config", "chip_smoke", "kernel_ab"):
         assert mod in report["imported"], mod
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "kernel_ab.py"]
     assert len(files) > 10
     return files
 
