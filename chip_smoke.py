@@ -21,16 +21,20 @@ and its CLI's capacity of 2^19 Gaussians. Phases:
 5. kernels   runs the forward walk and its plain PyTorch version on the card
              on the inputs the main path gives it, and fails past the stated
              tolerances
-6. timing    CUDA-event times of the forward walk and its plain version, of
-             a whole render, and a torch.profiler breakdown of one render
-             (device busy time, idle share, the costliest device ops)
+6. timing    CUDA-event times of the forward walk (host-ahead, and
+             host-paced as earlier runs took them: event_ms), of its plain
+             version and of a whole render, and a torch.profiler breakdown
+             of one render (device busy time, idle share, the costliest
+             device ops)
 7. check     a small render on the card against the port's CPU path (the
              plain versions, which the CPU tests hold to the JAX package)
 8. backward  the backward walk (f32 and bf16 slabs) and the per-Gaussian
              reduction against their plain versions at full width, on view
              0 with a seeded cotangent and a slab that held NaN before the
-             walk wrote it; their times, the reduction's library yardstick
-             (torch.segment_reduce) and each kernel's bound
+             walk wrote it (the reduction also two launches bit for bit);
+             their times, the reduction's yardsticks (index_add_, and
+             torch.segment_reduce after a sort) and bounds (its whole
+             sort-free path's, and the sorted path's kernel-only one)
 9. train     MappingTrainer on the Replica configuration: six keyframes
              rendered along a short path from a room of 100,000 flat splats
              on five walls (the bench scene is a random volume, whose
@@ -40,9 +44,10 @@ and its CLI's capacity of 2^19 Gaussians. Phases:
              to 0 just before and read just after; the three kernels
              against their plain versions on the trainer's own inputs (the
              last keyframe's view of the trained scene under the caps and
-             tiers the trainer ended with); a checkpoint saved and loaded
-             back; step times and a torch.profiler breakdown of one mapping
-             step
+             tiers the trainer ended with) and the reduction's times there,
+             beside that view's K, PC and pairs; a checkpoint saved and
+             loaded back; step times and a torch.profiler breakdown of one
+             mapping step
 10. repeat   two trainers with the same seed (two keyframes, ten
              iterations) give bit-identical scenes
 
@@ -110,6 +115,11 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the reduction against its plain version: the same float32 values summed
 # in another order (a run in order vs a Hillis-Steele scan)
 SEG_TOL = 1e-5
+# host-ahead timing's first device sleep (~2 ms at the H100's clocks)
+SLEEP_CYCLES = 1 << 22
+# and its longest: a function that takes the host longer to queue is not
+# timed host-ahead
+MAX_SLEEP_MS = 200.0
 
 
 def log(msg: str) -> None:
@@ -359,6 +369,16 @@ def compare_walk(got, ref, C: int) -> dict:
     return m
 
 
+def _bound(bytes_moved: float, n_ops: float, **detail):
+    """(bound ms, "bytes" or "operations", detail): the larger of the bytes
+    over the memory rate and the f32 operations over their rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), {
+        "bytes": bytes_moved, **detail, "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
 def walk_bound_ms(args, ref, C: int) -> tuple[float, str, dict]:
     """The least time the card could take for the forward walk on these
     inputs: the larger of the bytes it must move over the memory rate and
@@ -378,28 +398,62 @@ def walk_bound_ms(args, ref, C: int) -> tuple[float, str, dict]:
     per_pix = torch.where(nc >= 0, nc - st + 1,
                           counts[:, None].to(nc.dtype).expand_as(nc))
     evals = float(per_pix.double().sum())
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = evals * OPS_PER_EVAL / FP32_OPS_PER_S * 1e3
-    detail = {"pairs": n_pairs, "bytes": bytes_moved, "evals": evals,
-              "bytes_ms": t_bytes, "ops_ms": t_ops}
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), detail
+    return _bound(bytes_moved, evals * OPS_PER_EVAL, pairs=n_pairs,
+                  evals=evals)
 
 
-def event_ms(fn, reps: int, warmup: int = 2) -> float:
+def event_ms(fn, reps: int, warmup: int = 2, host_ahead: bool = True) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` back-to-back runs, by CUDA
-    events after a warm-up."""
+    events after a warm-up.
+
+    Host-ahead (the default): the stream first sleeps on the device
+    (``torch.cuda._sleep``) while the host queues all ``reps`` runs, so the
+    events bracket the device's work alone; where the host took longer to
+    queue them than the sleep lasted, the sleep is lengthened and the runs
+    repeated, up to four times (a function that synchronises inside keeps
+    the host behind the device however long it sleeps, and raises), and
+    never past MAX_SLEEP_MS: it raises at once when the next sleep would
+    be longer.
+    Host-paced (``host_ahead=False``, the method of earlier runs): the
+    events bracket the host's calls as well, so a kernel of tens of
+    microseconds waits for each launch and the time is the host's. The
+    plain versions and torch.segment_reduce are timed so: they synchronise
+    inside."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+    if not host_ahead:
+        start, end = event(), event()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        e0, e1, e2 = event(), event(), event()
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e2.record()
+        torch.cuda.synchronize()
+        slept = e0.elapsed_time(e1)
+        if slept > host_ms:
+            return e1.elapsed_time(e2) / reps
+        if 2 * host_ms > MAX_SLEEP_MS:
+            break
+        cycles = int(cycles * 2 * host_ms / max(slept, 1e-3)) + 1
+    raise RuntimeError(f"the host did not get ahead of the device: "
+                       f"{host_ms:.3f} ms to queue {reps} runs, the device "
+                       f"slept {slept:.3f} ms (does it synchronise?)")
 
 
 def profile(fn, wall_ms: float, reps: int) -> dict:
@@ -529,21 +583,25 @@ def compare_bwd(args, C: int, cfg, dtype) -> dict:
 
 
 def seg_inputs(slab, pr):
-    """The reduction's inputs as _reduce_to_gauss builds them."""
-    si, perm = torch.sort(pr["pair_idx"], stable=True)
-    ends = torch.cumsum(pr["per_rank_counts"], 0, dtype=torch.int32)
-    return (slab, perm.to(torch.int32), si.to(torch.int32), ends)
+    """The reduction's inputs as _backward_impl passes them."""
+    return (slab, pr["pair_idx"], pr["per_rank_counts"])
 
 
 def compare_seg(seg_args, kmax: int) -> dict:
+    """K3 against its plain version, and a second launch bit for bit the
+    first."""
     ref = hopper_raster.seg_reduce_plain(*seg_args, kmax)
     got = hopper_raster.seg_reduce(*seg_args, kmax)
+    again = hopper_raster.seg_reduce(*seg_args, kmax)
     synced(got.device)
     m = {"rel_l2": rel_l2(got, ref), "finite": bool(torch.isfinite(got).all()),
+         "zero_rows_equal": bool(torch.equal(got == 0, ref == 0)),
+         "repeat_bitwise": bool(torch.equal(got, again)),
          "max_abs_err": float((got - ref).abs().max()),
          "ranks": int(got.shape[0])}
     log("seg_reduce vs plain: " + json.dumps(m))
     if not (m["finite"] and bool(torch.isfinite(ref).all())
+            and m["zero_rows_equal"] and m["repeat_bitwise"]
             and m["rel_l2"] <= SEG_TOL):
         raise AssertionError(f"seg_reduce disagrees with its plain version "
                              f"({m}; limit {SEG_TOL})")
@@ -615,47 +673,118 @@ def bwd_bound_ms(args, C: int, cfg, slab_dtype) -> tuple[float, str, dict]:
                    + (starts.numel() * 3 + origins.numel()) * 4)
     evals, blended = walk_evals(args, C, cfg)
     ops = evals * OPS_PER_EVAL + blended * ops_per_blend(C)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    detail = {"bytes": bytes_moved, "evals": evals, "blended": blended,
-              "ops": ops, "needed_pairs": needed, "bytes_ms": t_bytes,
-              "ops_ms": t_ops}
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), detail
+    return _bound(bytes_moved, ops, evals=evals, blended=blended,
+                  operations=ops, needed_pairs=needed)
 
 
 def seg_bound_ms(seg_args) -> tuple[float, str, dict]:
-    """The least time for the reduction: bytes (each emitted pair's slab
-    row, perm entry and si entry read once, ``ends`` read once, the [K,
-    rows] float32 result written once; the slab's padding and its
-    unwritten tail are not needed) against one addition per value read."""
-    slab, perm, si, ends = seg_args
-    rows, K = slab.shape[1], ends.numel()
-    n_pairs = int(ends[-1]) if K else 0     # per_rank_counts.sum()
-    bytes_moved = (n_pairs * (rows * slab.element_size() + 4 + 4)
-                   + K * 4 + K * rows * 4)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = n_pairs * rows / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), {
-        "bytes": bytes_moved, "pairs": n_pairs, "bytes_ms": t_bytes,
-        "ops_ms": t_ops}
+    """The least time for the whole reduction, from pair_idx to [K, rows],
+    counted from what the function needs: pair_idx read once (PC x 4 B),
+    the emitted counts read once (K x 4 B), the surviving pairs' slab rows
+    read once and the [K, rows] float32 result written once; against one
+    addition per value read. The sort-free path's own traffic on top of
+    that (seg_design_bytes) is not counted."""
+    slab, pair_idx, prc = seg_args
+    PC, rows = slab.shape
+    K = prc.numel()
+    n_pairs = int((pair_idx < K).sum())
+    bytes_moved = (PC * 4 + K * 4 + n_pairs * rows * slab.element_size()
+                   + K * rows * 4)
+    return _bound(bytes_moved, n_pairs * rows, pairs=n_pairs)
 
 
-def library_seg_ms(seg_args, pr) -> float:
-    """torch.segment_reduce over the gathered float32 rows: the same
-    per-rank sums when nothing was dropped (the sentinel tail is its own
-    last segment). Timed as the yardstick; the port never calls it."""
-    slab, perm, _, _ = seg_args
-    gathered = slab.index_select(0, perm.long()).float()
-    prc = pr["per_rank_counts"].long()
-    lengths = torch.cat([prc, (slab.shape[0] - prc.sum()).reshape(1)])
-    out = torch.segment_reduce(gathered, "sum", lengths=lengths)
-    ref = hopper_raster.seg_reduce_plain(*seg_args, 1 << 20)
-    err = rel_l2(out[:-1], ref)
-    log(f"torch.segment_reduce vs the plain reduction: rel L2 {err:.3e}")
-    return event_ms(lambda: torch.segment_reduce(gathered, "sum",
-                                                 lengths=lengths), 20)
+def seg_design_bytes(seg_args) -> int:
+    """The bytes the sort-free design moves beyond seg_bound_ms's: each
+    surviving pair's bucket entry written and read (4 B each way), and per
+    rank its bucket offset and count written and read (8 B each way) and
+    its counter zeroed, counted and read (4 B each)."""
+    _, pair_idx, prc = seg_args
+    K = prc.numel()
+    return int((pair_idx < K).sum()) * 8 + K * (16 + 12)
+
+
+def seg_kernel_bound_ms(seg_args) -> tuple[float, str, dict]:
+    """The bound of the earlier sorted path's kernel alone (the sort, casts
+    and cumsum before it not counted): each emitted pair's slab row, perm
+    and si entries read once, the run ends read once, the result written
+    once."""
+    slab, _, prc = seg_args
+    rows, K = slab.shape[1], prc.numel()
+    n_pairs = int(prc.sum())
+    bytes_moved = (n_pairs * (rows * slab.element_size() + 8) + K * 4
+                   + K * rows * 4)
+    return _bound(bytes_moved, n_pairs * rows, pairs=n_pairs)
+
+
+def index_add_fn(seg_args):
+    """The one-call yardstick: float atomics of the surviving pairs' rows
+    into K rows, the same sums as the reduction when nothing was dropped,
+    in an order that changes from run to run. The surviving rows and their
+    ids are selected (and the rows upcast) outside the timed call, so no
+    row takes the filler ids' contended atomics. Timed here; the port never
+    calls it."""
+    slab, pair_idx, prc = seg_args
+    K, rows = prc.numel(), slab.shape[1]
+    keep = torch.nonzero(pair_idx < K)[:, 0]
+    ids = pair_idx.index_select(0, keep)
+    src = slab.index_select(0, keep).float()
+    return lambda: torch.zeros((K, rows), device=slab.device).index_add_(
+        0, ids, src)
+
+
+def segment_reduce_fn(seg_args):
+    """torch.segment_reduce over the float32 rows gathered in sorted order
+    (the sort and gather before it not timed): the same per-rank sums when
+    nothing was dropped (the filler is its own last segment)."""
+    slab, pair_idx, prc = seg_args
+    perm = torch.sort(pair_idx, stable=True).indices
+    gathered = slab.index_select(0, perm).float()
+    lengths = torch.cat([prc.long(),
+                         (slab.shape[0] - prc.long().sum()).reshape(1)])
+    return lambda: torch.segment_reduce(gathered, "sum", lengths=lengths)
+
+
+def time_seg(seg_args, kmax: int, card: str, view: str) -> dict:
+    """K3 on one view: host-ahead and host-paced, its plain version, the
+    two library yardsticks (each checked against the plain result), and
+    both bounds, logged beside the view's K, PC and pairs."""
+    slab, pair_idx, prc = seg_args
+    ref = hopper_raster.seg_reduce_plain(*seg_args, kmax)
+    lib_errs = {"index_add": rel_l2(index_add_fn(seg_args)(), ref),
+                "segment_reduce": rel_l2(segment_reduce_fn(seg_args)()[:-1],
+                                         ref)}
+    b, by, d = seg_bound_ms(seg_args)
+    bk, _, dk = seg_kernel_bound_ms(seg_args)
+    extra = seg_design_bytes(seg_args)
+    t = {"ms": event_ms(lambda: hopper_raster.seg_reduce(*seg_args, kmax),
+                        20),
+         "ms_host_paced": event_ms(
+             lambda: hopper_raster.seg_reduce(*seg_args, kmax), 20,
+             host_ahead=False),
+         "plain_ms": event_ms(lambda: hopper_raster.seg_reduce_plain(
+             *seg_args, kmax), 3, 1, host_ahead=False),
+         "library_ms": event_ms(index_add_fn(seg_args), 20),
+         # it reads the segment lengths on the host: host-paced
+         "segment_reduce_ms": event_ms(segment_reduce_fn(seg_args), 20,
+                                       host_ahead=False),
+         "bound_ms": b, "bound_by": by, "kernel_bound_ms": bk,
+         "design_extra_bytes": extra}
+    # the device time of each of the path's launches
+    prof = profile(lambda: hopper_raster.seg_reduce(*seg_args, kmax),
+                   t["ms"], 20)
+    t["kernels_ms"] = {row["name"][:60]: row["ms"] for row in prof["top"]}
+    log(f"timing on {card}, {view}: seg_reduce {t['ms']:.4f} ms host-ahead "
+        f"({t['ms_host_paced']:.4f} host-paced), plain {t['plain_ms']:.4f} "
+        f"ms, index_add_ {t['library_ms']:.4f} ms, torch.segment_reduce "
+        f"{t['segment_reduce_ms']:.4f} ms; bound {b:.4f} ms ({by}; "
+        f"{json.dumps(d)}), share {b / t['ms']:.4f}; the bucket and "
+        f"counters move {extra} B more ({extra / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms at the memory rate); the sorted path's kernel-only bound "
+        f"{bk:.4f} ms ({json.dumps(dk)}); K "
+        f"{prc.numel()}, PC {slab.shape[0]}, emitted pairs {int(prc.sum())},"
+        f" surviving {d['pairs']}; yardsticks vs plain rel L2 "
+        f"{json.dumps(lib_errs)}")
+    return t
 
 
 def check_backward(walk_args, fwd_out, pr, C: int, cfg, seed: int,
@@ -667,7 +796,8 @@ def check_backward(walk_args, fwd_out, pr, C: int, cfg, seed: int,
     m32, _ = compare_bwd(args, C, cfg, torch.float32)
     m16, slab = compare_bwd(args, C, cfg, torch.bfloat16)
     kmax = pairs.big_tiles_for(cfg, width, height)
-    seg_args = seg_inputs(slab, pr)      # the slab held NaN before K2 ran
+    # the slab held NaN before K2 ran: its unwritten tail still does
+    seg_args = seg_inputs(slab, pr)
     ms_ = compare_seg(seg_args, kmax)
     errs = {"bwd_pairwalk": max(m32["max_abs_err"], m16["max_abs_err"]),
             "seg_reduce": ms_["max_abs_err"]}
@@ -677,31 +807,26 @@ def check_backward(walk_args, fwd_out, pr, C: int, cfg, seed: int,
 def backward_phase(walk_args, fwd_out, pr, C: int, cfg, seed: int,
                    card: str) -> dict:
     """Phase 8: K2 and K3 against their plain versions at the main path's
-    shapes, then their times and bounds."""
+    shapes, then their times (host-ahead and host-paced) and bounds."""
     args, seg_args, kmax, errs = check_backward(walk_args, fwd_out, pr, C,
                                                 cfg, seed)
     out = {k: {"max_abs_err": v} for k, v in errs.items()}
     dt = hopper_raster.GRAD_SLAB_DTYPE
     k2 = event_ms(lambda: hopper_raster.bwd_pairwalk(*args, C, cfg, dt), 20)
+    k2_paced = event_ms(lambda: hopper_raster.bwd_pairwalk(
+        *args, C, cfg, dt), 20, host_ahead=False)
     k2_plain = event_ms(lambda: hopper_raster.bwd_pairwalk_plain(
-        *args, C, cfg, dt), 3, 1)
-    k3 = event_ms(lambda: hopper_raster.seg_reduce(*seg_args, kmax), 20)
-    k3_plain = event_ms(lambda: hopper_raster.seg_reduce_plain(
-        *seg_args, kmax), 3, 1)
-    k3_lib = library_seg_ms(seg_args, pr)
+        *args, C, cfg, dt), 3, 1, host_ahead=False)
     b2, by2, d2 = bwd_bound_ms(args, C, cfg, dt)
-    b3, by3, d3 = seg_bound_ms(seg_args)
-    out["bwd_pairwalk"].update(ms=k2, plain_ms=k2_plain, bound_ms=b2,
-                               bound_by=by2, library_ms=None)
-    out["seg_reduce"].update(ms=k3, plain_ms=k3_plain, bound_ms=b3,
-                             bound_by=by3, library_ms=k3_lib)
-    log(f"timing on {card} ({str(dt)[6:]} slab): bwd_pairwalk {k2:.4f} ms, "
-        f"plain {k2_plain:.4f} ms, bound {b2:.4f} ms ({by2}; "
-        f"{json.dumps(d2)}), share of the bound {b2 / k2:.4f}; no single "
-        f"PyTorch call computes the walk (library_ms null)")
-    log(f"timing on {card}: seg_reduce {k3:.4f} ms, plain {k3_plain:.4f} "
-        f"ms, torch.segment_reduce {k3_lib:.4f} ms, bound {b3:.4f} ms "
-        f"({by3}; {json.dumps(d3)})")
+    out["bwd_pairwalk"].update(ms=k2, ms_host_paced=k2_paced,
+                               plain_ms=k2_plain, bound_ms=b2, bound_by=by2,
+                               library_ms=None)
+    log(f"timing on {card} ({str(dt)[6:]} slab): bwd_pairwalk {k2:.4f} ms "
+        f"host-ahead ({k2_paced:.4f} host-paced), plain {k2_plain:.4f} ms, "
+        f"bound {b2:.4f} ms ({by2}; {json.dumps(d2)}), share of the bound "
+        f"{b2 / k2:.4f}; no single PyTorch call computes the walk "
+        f"(library_ms null)")
+    out["seg_reduce"].update(time_seg(seg_args, kmax, card, "serve view 0"))
     return out
 
 
@@ -774,27 +899,38 @@ def profile_step(trainer, reps: int = 2) -> dict:
     return profile(step, (time.perf_counter() - t0) * 1e3, reps)
 
 
-def train_kernel_check(trainer, frame, seed: int) -> dict:
-    """The three kernels against their plain versions on the trainer's own
-    inputs: one keyframe's view of the trained scene under the caps and
-    tiers the trainer ended with (its pair_cap_override and visible_cap K,
-    most of whose ranks have no pairs)."""
+def train_view(trainer, frame):
+    """(walk inputs, channels, build_pairs dict, raster config) of one
+    keyframe's view of the trained scene under the caps and tiers the
+    trainer ended with (its pair_cap_override and visible_cap K, most of
+    whose ranks have no pairs)."""
     cfg = trainer.cfg
     rcfg = cfg.raster_config()
     cam = Camera.create(frame[3], cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.width,
                         cfg.height, device=trainer.device)
     with torch.no_grad():
         walk_args, C, pr = walk_inputs(trainer.scene, cam, rcfg)
+    return walk_args, C, pr, rcfg
+
+
+def train_kernel_check(trainer, frame, seed: int, card: str) -> dict:
+    """The three kernels against their plain versions on the trainer's own
+    inputs (train_view), and the reduction's times there."""
+    cfg = trainer.cfg
+    walk_args, C, pr, rcfg = train_view(trainer, frame)
+    with torch.no_grad():
         got = hopper_raster.fwd_pairwalk(*walk_args, C, rcfg)
         ref = hopper_raster.fwd_pairwalk_plain(*walk_args, C, rcfg)
         synced(trainer.device)
         m = compare_walk(got, ref, C)
-        *_, errs = check_backward(walk_args, got, pr, C, rcfg, seed,
-                                  cfg.width, cfg.height)
+        _, seg_args, kmax, errs = check_backward(
+            walk_args, got, pr, C, rcfg, seed, cfg.width, cfg.height)
+        seg_t = time_seg(seg_args, kmax, card, "train view")
     res = {"fwd_pairwalk": m["max_abs_err"], **errs,
            "pair_array": int(walk_args[0].shape[1]),
            "ranks": int(pr["per_rank_counts"].numel()),
-           "pairs": int(pr["per_rank_counts"].sum())}
+           "pairs": int(pr["per_rank_counts"].sum()), "kmax": kmax,
+           "seg_reduce_timing": seg_t}
     log("train: kernels vs plain on the trainer's inputs " + json.dumps(res))
     return res
 
@@ -898,7 +1034,7 @@ def train_phase(scene, seed: int, device, card: str,
         raise AssertionError(f"mapping loss did not fall: first "
                              f"{losses[0]}, last {losses[-1]}")
     check_scene(trainer)
-    kernel_errs = train_kernel_check(trainer, frames[-1], seed)
+    kernel_errs = train_kernel_check(trainer, frames[-1], seed, card)
     checkpoint_round_trip(trainer, cfg, seed)
     log("train step profile: " + json.dumps(profile_step(trainer)))
     return {"launches": launches, "kernel_errs": kernel_errs, **res}
@@ -1003,14 +1139,20 @@ def main(argv=None) -> int:
 
     # 6. timing
     ms = event_ms(lambda: hopper_raster.fwd_pairwalk(*walk_args, C, cfg), 20)
+    ms_paced = event_ms(lambda: hopper_raster.fwd_pairwalk(*walk_args, C,
+                                                           cfg), 20,
+                        host_ahead=False)
     plain_ms = event_ms(
-        lambda: hopper_raster.fwd_pairwalk_plain(*walk_args, C, cfg), 3, 1)
+        lambda: hopper_raster.fwd_pairwalk_plain(*walk_args, C, cfg), 3, 1,
+        host_ahead=False)
     bound_ms, bound_by, detail = walk_bound_ms(walk_args, ref, C)
-    render_ms = event_ms(lambda: render(scene, cams[0], cfg), 10)
-    log(f"timing on {card}: fwd_pairwalk {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, bound {bound_ms:.4f} ms ({bound_by}; {json.dumps(detail)}), "
-        f"share of the bound {bound_ms / ms:.4f}, whole render "
-        f"{render_ms:.4f} ms")
+    # a whole render is timed as its caller pays it, host included
+    render_ms = event_ms(lambda: render(scene, cams[0], cfg), 10,
+                         host_ahead=False)
+    log(f"timing on {card}: fwd_pairwalk {ms:.4f} ms host-ahead "
+        f"({ms_paced:.4f} host-paced), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {json.dumps(detail)}), share of the "
+        f"bound {bound_ms / ms:.4f}, whole render {render_ms:.4f} ms")
     log("library: no single PyTorch call computes the pair walk, so there "
         "is no library yardstick (library_ms null)")
     log("profile of one render: " + json.dumps(
@@ -1043,6 +1185,9 @@ def main(argv=None) -> int:
     for k in ("bwd_pairwalk", "seg_reduce"):
         bwd[k]["max_abs_err"] = max(bwd[k]["max_abs_err"],
                                     train["kernel_errs"][k])
+    # the reduction on the train path's own view, beside serve view 0's
+    bwd["seg_reduce"]["train_view"] = train["kernel_errs"][
+        "seg_reduce_timing"]
 
     src = "splatloc_tpu_torch/csrc/"
     ref = "splatloc_tpu/raster/pallas_raster.py:"
@@ -1050,7 +1195,8 @@ def main(argv=None) -> int:
         {"name": "fwd_pairwalk", "route": "cuda",
          "source": src + "fwd_pairwalk.cu", "replaces": ref + "175",
          **launched("fwd_pairwalk"),
-         "max_abs_err": m["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+         "max_abs_err": m["max_abs_err"], "ms": ms,
+         "ms_host_paced": ms_paced, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         {"name": "bwd_pairwalk", "route": "cuda",
          "source": src + "bwd_pairwalk.cu", "replaces": ref + "357",

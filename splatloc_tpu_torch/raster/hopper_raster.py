@@ -21,9 +21,10 @@ which is the CPU path and the oracle the kernel is held against on the card:
 - ``bwd_pairwalk`` / ``bwd_pairwalk_plain``: ``csrc/bwd_pairwalk.cu``,
   replacing ``_bwd_kernel``;
 - ``seg_reduce`` / ``seg_reduce_plain``: ``csrc/seg_reduce.cu``, replacing
-  ``_segscan_kernel`` with its run-end read, and ``_compact_copy_kernel``,
-  whose upcast of the slab to float32 is the kernel's load (its other half,
-  pinning the TPU's compact layout, has no meaning on Hopper).
+  the rank sort, ``_segscan_kernel`` with its run-end read, and
+  ``_compact_copy_kernel``, whose upcast of the slab to float32 is the
+  kernel's load (its other half, pinning the TPU's compact layout, has no
+  meaning on Hopper).
 
 ``blend_pairs`` is a ``torch.autograd.Function`` whose backward is the
 backward walk and the reduction.
@@ -653,16 +654,20 @@ bwd_pairwalk.launches = 0
 # the per-Gaussian reduction: kernel wrapper and plain version
 # --------------------------------------------------------------------------
 
-def seg_reduce_plain(slab, perm, si, ends, kmax: int):
+def seg_reduce_plain(slab, pair_idx, per_rank_counts, kmax: int):
     """Per-rank sums of the slab rows, as the JAX package's reduction reads
-    them: gather the rows through ``perm``, upcast to float32, run an
-    inclusive segmented scan over the runs of equal ids ``si`` (Hillis-
-    Steele, log2(kmax) passes), and read each rank r's run end at
-    ``at = clip(ends[r] - 1, 0, PC - 1)``; it is the rank's sum where
-    si[at] == r, else zeros. -> [K, rows] float32, K = len(ends)."""
+    them: a stable sort of the pairs by id (``sort_key_val``), the rows
+    gathered through its permutation and upcast to float32, an inclusive
+    segmented scan over the runs of equal sorted ids (Hillis-Steele,
+    log2(kmax) passes), and each rank r's run end read at
+    ``at = clip(ends[r] - 1, 0, PC - 1)``, ``ends`` the cumulative
+    ``per_rank_counts``: it is the rank's sum where the sorted id at ``at``
+    is r, else zeros. -> [K, rows] float32, K = len(per_rank_counts)."""
     PC, rows = slab.shape
-    K = ends.shape[0]
-    x = slab.index_select(0, perm.long()).to(torch.float32).T  # [rows, PC]
+    K = per_rank_counts.shape[0]
+    si, perm = torch.sort(pair_idx, stable=True)
+    ends = torch.cumsum(per_rank_counts, 0, dtype=torch.int32)
+    x = slab.index_select(0, perm).to(torch.float32).T      # [rows, PC]
     pos = torch.arange(PC, device=slab.device)
     k = 1
     while k < kmax:
@@ -675,35 +680,72 @@ def seg_reduce_plain(slab, perm, si, ends, kmax: int):
     return torch.where(valid[:, None], vals, torch.zeros_like(vals))
 
 
-def _seg_lib():
-    lib = build.load("seg_reduce")
-    lib.seg_reduce_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_longlong]
-                                      + [ctypes.c_void_p] * 3
-                                      + [ctypes.c_int, ctypes.c_void_p,
-                                         ctypes.c_void_p])
+_SEG_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+
+
+def seg_lib(lib=None):
+    """The reduction's library (default: the package's build) with its C
+    functions' argument types set."""
+    lib = lib or build.load("seg_reduce")
+    lib.seg_reduce_launch.argtypes = _SEG_ARGTYPES
     lib.seg_reduce_launch.restype = ctypes.c_int
+    lib.seg_reduce_scratch_ints.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.seg_reduce_scratch_ints.restype = ctypes.c_longlong
     return lib
 
 
-def seg_reduce(slab, perm, si, ends, kmax: int):
-    """Per-rank sums of the slab rows -> [K, rows] float32 (see
-    seg_reduce_plain). ``perm`` [PC] int32 is the stable sort permutation
-    of the pair ids, ``si`` [PC] int32 the sorted ids, ``ends`` [K] int32
-    the cumulative per-rank pair counts.
+def seg_reduce_launch(lib, slab, pair_idx, per_rank_counts):
+    """Launches one build's reduction on checked CUDA inputs into a new
+    [K, rows] float32 tensor, on the current stream."""
+    PC, rows = slab.shape
+    K = per_rank_counts.shape[0]
+    dev = slab.device
+    out = torch.empty((K, rows), dtype=torch.float32, device=dev)
+    if K == 0:
+        return out
+    scratch = torch.empty(lib.seg_reduce_scratch_ints(K, PC),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.seg_reduce_launch(
+            slab.data_ptr(), int(slab.dtype == torch.bfloat16), rows, PC,
+            pair_idx.data_ptr(), per_rank_counts.data_ptr(), K,
+            scratch.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"seg_reduce launch failed: CUDA error {err}")
+    return out
 
-    On CUDA tensors it launches ``csrc/seg_reduce.cu`` (one warp per rank,
-    which sums the rank's whole run, so ``kmax`` is not needed there) and
-    adds one to ``seg_reduce.launches``; on CPU tensors it runs the plain
-    version."""
+
+def seg_reduce(slab, pair_idx, per_rank_counts, kmax: int):
+    """Per-rank sums of the slab rows -> [K, rows] float32 (see
+    seg_reduce_plain). ``pair_idx`` [PC] int32 holds each pair's depth
+    rank (ids >= K reach no rank), ``per_rank_counts`` [K] int32 the pairs
+    each rank emitted; ``kmax`` bounds those counts (the plain version's
+    scan passes).
+
+    On CUDA tensors it launches ``csrc/seg_reduce.cu`` on the current
+    stream, which sorts nothing: integer atomics drop each pair into its
+    rank's bucket, and each rank orders its bucket before summing it, so
+    two launches agree bit for bit; runs of any length. It adds one to
+    ``seg_reduce.launches``. There a slab that is not 16-byte aligned
+    raises ValueError, and more than 2^20 ranks or 2^31 - 1 pairs make the
+    launch fail (RuntimeError). On CPU tensors it runs the plain version.
+    This is the port's counterpart of the reference's ``_reduce_to_gauss``:
+    run ends come from the emitted counts, exact when nothing was dropped;
+    when pairs were dropped, a rank whose run end does not land in its own
+    run gets zeros, as in the reference."""
     if slab.dim() != 2 or slab.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"slab must be 2-D float32 or bfloat16, got "
                          f"{slab.dtype} {tuple(slab.shape)}")
     PC, rows = slab.shape
     if rows not in (8, 16, 32):
         raise ValueError(f"slab rows {rows}: 8, 16 or 32")
-    for name, x, n in (("perm", perm, PC), ("si", si, PC),
-                       ("ends", ends, None)):
+    if PC == 0:
+        raise ValueError("empty pair array")
+    for name, x, n in (("pair_idx", pair_idx, PC),
+                       ("per_rank_counts", per_rank_counts, None)):
         if x.dtype != torch.int32 or x.dim() != 1 or (
                 n is not None and x.shape[0] != n):
             raise ValueError(f"{name} must be int32 [{n or 'K'}], got "
@@ -713,41 +755,17 @@ def seg_reduce(slab, perm, si, ends, kmax: int):
                              f"{slab.device}")
     dev = slab.device
     if dev.type == "cpu":
-        return seg_reduce_plain(slab, perm, si, ends, kmax)
-    _require_cuda("seg_reduce", dev, {"slab": slab, "perm": perm, "si": si,
-                                      "ends": ends})
-    K = ends.shape[0]
-    out = torch.empty((K, rows), dtype=torch.float32, device=dev)
-    if K == 0:
-        return out
-    lib = _seg_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.seg_reduce_launch(
-            slab.data_ptr(), int(slab.dtype == torch.bfloat16), rows, PC,
-            perm.data_ptr(), si.data_ptr(), ends.data_ptr(), K,
-            out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"seg_reduce launch failed: CUDA error {err}")
+        return seg_reduce_plain(slab, pair_idx, per_rank_counts, kmax)
+    _require_cuda("seg_reduce", dev, {"slab": slab, "pair_idx": pair_idx,
+                                      "per_rank_counts": per_rank_counts})
+    if slab.data_ptr() % 16:
+        raise ValueError("the CUDA reduction reads 16-byte aligned rows")
+    out = seg_reduce_launch(seg_lib(), slab, pair_idx, per_rank_counts)
     seg_reduce.launches += 1
     return out
 
 
 seg_reduce.launches = 0
-
-
-def _reduce_to_gauss(grad_pairs, pair_idx, per_rank_counts, kmax: int):
-    """Per-pair grads [PC, rows] -> per-Gaussian grads [K, rows] in depth
-    order: a stable sort of the pairs by depth rank (the JAX package's
-    ``sort_key_val`` is stable), then ``seg_reduce``. Run ends come from
-    the per-rank emitted counts, exact when nothing was dropped; when pairs
-    were dropped, a rank whose run end does not land in its own run gets
-    zeros, and one whose run was cut keeps the part before its end, as in
-    the reference."""
-    si, perm = torch.sort(pair_idx, stable=True)
-    ends = torch.cumsum(per_rank_counts, 0, dtype=torch.int32)
-    return seg_reduce(grad_pairs, perm.to(torch.int32), si.to(torch.int32),
-                      ends, kmax)
 
 
 def _backward_impl(pr, gpair, fwd_out, cot, order, origins, width, height,
@@ -759,8 +777,8 @@ def _backward_impl(pr, gpair, fwd_out, cot, order, origins, width, height,
     jhi = _jhi(fwd_out, pr["starts"], pr["counts"], C)
     slab = bwd_pairwalk(gpair, pr["starts"], pr["counts"], origins, jhi,
                         fwd_out, cot, C, cfg)
-    seg = _reduce_to_gauss(slab, pr["pair_idx"], pr["per_rank_counts"],
-                           pairs_mod.big_tiles_for(cfg, width, height))
+    seg = seg_reduce(slab, pr["pair_idx"], pr["per_rank_counts"],
+                     pairs_mod.big_tiles_for(cfg, width, height))
     full = seg.new_zeros((n, seg.shape[1]))
     full.index_copy_(0, order[:K].long(), seg)
     return (full[:, R_X], full[:, R_Y], full[:, R_CA], full[:, R_CB],

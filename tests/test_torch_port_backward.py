@@ -214,8 +214,8 @@ def test_reduction_matches_jax(slab_refs, case, mode, monkeypatch):
     want = np.asarray(jpr._reduce_to_gauss(
         jnp.asarray(pad), pr["pair_idx"], pr["per_rank_counts"], K, 4, kmax,
         True))
-    got = tpr._reduce_to_gauss(_t(slab), _t(pr["pair_idx"]),
-                               _t(pr["per_rank_counts"]), kmax).numpy()
+    got = tpr.seg_reduce(_t(slab), _t(pr["pair_idx"]),
+                         _t(pr["per_rank_counts"]), kmax).numpy()
     assert got.shape == want.shape == (K, slab.shape[1])
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     assert np.abs(got).max() > 0
@@ -234,9 +234,9 @@ def test_reduction_ignores_unwritten_tail(slab_refs):
     clean[~mask] = 0.0
     slab[~mask] = float("nan")
     args = (_t(pr["pair_idx"]), _t(pr["per_rank_counts"]), 192)
-    got = tpr._reduce_to_gauss(slab, *args)
+    got = tpr.seg_reduce(slab, *args)
     assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, tpr._reduce_to_gauss(clean, *args),
+    torch.testing.assert_close(got, tpr.seg_reduce(clean, *args),
                                rtol=0, atol=0)
 
 
@@ -254,10 +254,12 @@ def test_wrappers_on_cpu_run_plain_and_check_inputs(slab_refs):
     plain, _ = _port_slab(ref, torch.float32)
     mask = torch.from_numpy(_segment_mask(pr, slab.shape[0]))
     torch.testing.assert_close(slab[mask], plain[mask], rtol=0, atol=0)
-    si, perm = torch.sort(_t(pr["pair_idx"]), stable=True)
-    ends = torch.cumsum(_t(pr["per_rank_counts"]), 0, dtype=torch.int32)
-    red = tpr.seg_reduce(slab, perm.int(), si.int(), ends, 192)
-    assert red.shape == (ends.shape[0], slab.shape[1])
+    pair_idx, prc = _t(pr["pair_idx"]), _t(pr["per_rank_counts"])
+    red = tpr.seg_reduce(slab, pair_idx, prc, 192)
+    assert red.shape == (prc.shape[0], slab.shape[1])
+    # a larger kmax only adds scan passes that find no longer runs
+    torch.testing.assert_close(
+        tpr.seg_reduce(slab, pair_idx, prc, 8192), red, rtol=0, atol=0)
     assert (tpr.bwd_pairwalk.launches, tpr.seg_reduce.launches) == before
     with pytest.raises(ValueError):
         tpr.bwd_pairwalk(*args, jhi.long(), *rest[1:], 4, ref["cfg"])
@@ -267,12 +269,14 @@ def test_wrappers_on_cpu_run_plain_and_check_inputs(slab_refs):
     with pytest.raises(ValueError):
         tpr.bwd_pairwalk(*args, *rest, 4, ref["cfg"], torch.float16)
     with pytest.raises(ValueError):
-        tpr.seg_reduce(slab, perm, si.int(), ends, 192)
+        tpr.seg_reduce(slab, pair_idx.long(), prc, 192)
     with pytest.raises(ValueError):
-        tpr.seg_reduce(slab.double(), perm.int(), si.int(), ends, 192)
+        tpr.seg_reduce(slab, pair_idx[:-1], prc, 192)
+    with pytest.raises(ValueError):
+        tpr.seg_reduce(slab.double(), pair_idx, prc, 192)
     with pytest.raises(ValueError, match="meta"):
-        tpr.seg_reduce(slab.to("meta"), perm.int().to("meta"),
-                       si.int().to("meta"), ends.to("meta"), 192)
+        tpr.seg_reduce(slab.to("meta"), pair_idx.to("meta"),
+                       prc.to("meta"), 192)
 
 
 # --------------------------------------------------------------------------

@@ -311,52 +311,146 @@ def test_walks_reject_tile_sizes_they_do_not_take(cuda, ts):
             hopper_raster.bwd_pairwalk.launches) == before
 
 
-def _runs(seed, K, long_run, drop):
-    """Sorted pair ids with run lengths from ``seed`` (rank 3's run is
-    ``long_run`` long), a sentinel tail of id K, and run ends; with
-    ``drop``, some ranks lose pairs after their counts were taken (the
-    reference's dropped-pair case)."""
+def _runs(seed, K, long_run, drop, sentinels=300):
+    """Pair ids in a random order with run lengths from ``seed`` (ranks 3
+    and K / 2 + 3 emit ``long_run`` pairs), ``sentinels`` filler ids K, and
+    the per-rank emitted counts; with ``drop``, a tenth of the upper half's
+    pairs is lost after the counts were taken (the reference's
+    dropped-pair case: every later run end misses its run)."""
     rng = np.random.default_rng(seed)
     counts = rng.integers(0, 12, K)
-    counts[3] = long_run
+    counts[3] = counts[K // 2 + 3] = long_run
     ids = np.repeat(np.arange(K), counts)
     if drop:
-        keep = rng.uniform(size=ids.shape[0]) > 0.1
+        keep = (ids < K // 2) | (rng.uniform(size=ids.shape[0]) > 0.1)
         ids = ids[keep]
-    ids = np.concatenate([ids, np.full(300, K)])
-    ends = np.cumsum(counts).astype(np.int32)
-    return ids.astype(np.int32), ends
+    ids = rng.permutation(np.concatenate([ids, np.full(sentinels, K)]))
+    return (torch.from_numpy(ids.astype(np.int32)),
+            torch.from_numpy(counts.astype(np.int32)))
+
+
+def seg_case(seed, K, long_run, drop, dtype, rows=16, sentinels=300):
+    """The reduction's inputs on the CPU: pair ids, emitted counts and a
+    slab whose rows of filler ids are NaN (they must reach no rank)."""
+    pair_idx, prc = _runs(seed, K, long_run, drop, sentinels)
+    rng = np.random.default_rng(seed + 1)
+    slab = torch.from_numpy(rng.normal(size=(pair_idx.shape[0], rows))
+                            .astype(np.float32))
+    slab[pair_idx == K] = float("nan")
+    return slab.to(dtype), pair_idx, prc
+
+
+def assert_seg_matches_plain(args, kmax, cuda):
+    """K3 on CPU ``args`` against its plain version (relative L2 1e-5, the
+    same zero rows), one launch counted per call, and a second launch bit
+    for bit the first. Returns the plain result."""
+    ref = hopper_raster.seg_reduce_plain(*args, kmax)
+    d = [a.to(cuda) for a in args]
+    before = hopper_raster.seg_reduce.launches
+    got = hopper_raster.seg_reduce(*d, kmax)
+    again = hopper_raster.seg_reduce(*d, kmax)
+    torch.cuda.synchronize()
+    assert hopper_raster.seg_reduce.launches == before + 2
+    assert torch.equal(got, again)
+    got = got.cpu()
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
+    assert rel_l2(got, ref) <= 1e-5
+    assert torch.equal(got == 0, ref == 0)
+    return ref
 
 
 @pytest.mark.parametrize("drop", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seg_reduce_kernel_matches_plain(cuda, dtype, drop):
-    """K3 against its plain version on a run longer than any block (20,000
-    pairs of one rank) and, with ``drop``, on partial runs; the slab's
-    sentinel tail is NaN and reaches no rank."""
-    K, rows = 500, 16
-    ids, ends = _runs(5, K, 20_000, drop)
-    pc = ids.shape[0]
-    rng = np.random.default_rng(6)
-    pair_idx = torch.from_numpy(rng.permutation(ids))
-    slab = torch.from_numpy(rng.normal(size=(pc, rows)).astype(np.float32))
-    slab[pair_idx == K] = float("nan")
-    slab = slab.to(dtype)
-    si, perm = torch.sort(pair_idx, stable=True)
-    args = [slab, perm.int(), si.int(), torch.from_numpy(ends)]
-    ref = hopper_raster.seg_reduce_plain(*args, 1 << 15)
-    before = hopper_raster.seg_reduce.launches
-    got = hopper_raster.seg_reduce(*[a.to(cuda) for a in args], 1 << 15)
-    torch.cuda.synchronize()
-    assert hopper_raster.seg_reduce.launches == before + 1
-    got = got.cpu()
-    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
-    assert rel_l2(got, ref) <= 1e-5
+    """K3 against its plain version (assert_seg_matches_plain) on runs
+    longer than any bucket (20,000 pairs of one rank: the slow path) and,
+    with ``drop``, on dropped pairs; the slab's filler rows are NaN."""
+    kmax = 20_000
+    ref = assert_seg_matches_plain(seg_case(5, 500, kmax, drop, dtype),
+                                   kmax, cuda)
+    assert float(ref[3].abs().max()) > 0    # the long run was summed
     if drop:
         # run ends that miss their own run give zero rows
-        assert bool((ref == 0).all(dim=1).any())
-    else:
-        assert float(ref[3].abs().max()) > 0    # the long run was summed
+        assert bool((ref[250:] == 0).all(dim=1).any())
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("long_run", [1, 9, 192, 1200])
+def test_seg_reduce_rows_and_run_lengths(cuda, rows, dtype, long_run):
+    """Every row count and slab dtype (the 16-byte row split differs), long
+    runs on the short path (up to 8 pairs) and on the warp path, several
+    chunks of 256 ranks."""
+    args = seg_case(7, 1500, long_run, False, dtype, rows)
+    assert_seg_matches_plain(args, max(long_run, 12), cuda)
+
+
+@pytest.mark.parametrize("long_run", [4096, 4097])
+def test_seg_reduce_runs_at_the_bucket_size(cuda, long_run):
+    """A run that just fills a rank's bucket (4096 pairs, staged and
+    ordered in shared memory) and one a pair longer (summed by scanning
+    pair_idx)."""
+    args = seg_case(6, 700, long_run, False, torch.bfloat16)
+    assert_seg_matches_plain(args, long_run, cuda)
+
+
+def test_seg_reduce_many_staging_windows(cuda):
+    """Chunks whose buckets hold more entries than one staging window
+    (4096): every rank has a run of 40."""
+    K = 600
+    ids = np.random.default_rng(8).permutation(np.repeat(np.arange(K), 40))
+    slab = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(ids.shape[0], 16)).astype(np.float32))
+    assert_seg_matches_plain([slab, torch.from_numpy(ids.astype(np.int32)),
+                              torch.full((K,), 40, dtype=torch.int32)],
+                             40, cuda)
+
+
+def test_seg_reduce_short_counts_take_the_slow_path(cuda):
+    """Emitted counts below the surviving pairs (never from build_pairs):
+    the buckets cannot hold those runs, and the kernel sums them by
+    scanning pair_idx; it still gives the plain version's result, partial
+    runs included."""
+    slab, pair_idx, prc = seg_case(10, 400, 30, False, torch.float32,
+                                   sentinels=0)
+    prc = prc.clone()
+    prc[::7] = torch.clamp(prc[::7] - 3, min=0)
+    assert_seg_matches_plain([slab, pair_idx, prc], 30, cuda)
+
+
+def test_seg_reduce_edge_cases(cuda):
+    """K = 0; an all-sentinel pair array (zero rows); more ranks than the
+    kernel takes (2^20) make the launch fail, and it is not counted."""
+    slab = torch.randn(512, 16, device=cuda)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = hopper_raster.seg_reduce(slab, torch.zeros(512, dtype=torch.int32,
+                                                     device=cuda), none, 12)
+    assert got.shape == (0, 16)
+    prc = torch.full((300,), 3, dtype=torch.int32, device=cuda)
+    sent = torch.full((512,), 300, dtype=torch.int32, device=cuda)
+    got = hopper_raster.seg_reduce(slab, sent, prc, 12)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+    before = hopper_raster.seg_reduce.launches
+    many = torch.ones(((1 << 20) + 1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="seg_reduce launch failed"):
+        hopper_raster.seg_reduce(slab, sent, many, 12)
+    assert hopper_raster.seg_reduce.launches == before
+
+
+def test_seg_reduce_on_card_sorts_nothing(cuda, monkeypatch):
+    """The CUDA path of the reduction (the port's _reduce_to_gauss) calls
+    no torch.sort (patched to raise) and matches the plain version."""
+    slab, pair_idx, prc = seg_case(12, 800, 40, True, torch.bfloat16)
+    ref = hopper_raster.seg_reduce_plain(slab, pair_idx, prc, 40)
+    d = [slab.to(cuda), pair_idx.to(cuda), prc.to(cuda)]
+
+    def no_sort(*a, **k):
+        raise AssertionError("torch.sort called")
+    monkeypatch.setattr(torch, "sort", no_sort)
+    got = hopper_raster.seg_reduce(*d, 40)
+    torch.cuda.synchronize()
+    assert rel_l2(got.cpu(), ref) <= 1e-5
 
 
 def test_rasterize_grads_on_card_match_cpu(cuda):

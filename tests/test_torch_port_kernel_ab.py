@@ -23,6 +23,24 @@ def test_ablation_edits_match_the_sources_once(name):
         assert old != new
 
 
+def test_builds_compile_what_they_hold_or_edit(tmp_path, monkeypatch):
+    """A reference directory compiles the kernels whose sources it holds
+    (an earlier commit's seg_reduce.cu alone: the reduction only); an
+    ablation compiles the kernels its edits touch (the walks share
+    pair_power.cuh)."""
+    monkeypatch.setattr(kernel_ab, "AB_DIR", tmp_path / "ab")
+    old = tmp_path / "old"
+    old.mkdir()
+    (old / "seg_reduce.cu").write_text("// an earlier reduction\n")
+    assert kernel_ab.kernels_of(kernel_ab.make_sources("old", old, [])) \
+        == ["seg"]
+    full = kernel_ab.make_sources("new", build.CSRC, [])
+    assert kernel_ab.kernels_of(full) == ["fwd", "bwd", "seg"]
+    for name, edits in kernel_ab.ABLATIONS.items():
+        want = ["seg"] if name.startswith("seg_") else ["fwd", "bwd"]
+        assert kernel_ab.kernels_of(None, edits) == want, name
+
+
 def test_split_inputs_partitions_the_tiles():
     torch.set_num_threads(1)
     rng = np.random.default_rng(0)
@@ -65,3 +83,24 @@ def test_split_inputs_partitions_the_tiles():
     # the long half holds the tiles with the most pairs
     if bool(kept.any()) and bool((~kept & (counts > 0)).any()):
         assert int(counts[kept].min()) >= int(counts[~kept].max())
+
+
+def test_long_run_view_holds_one_run_past_the_bucket():
+    """The synthetic long-run input: the sizes and dtype of the input it is
+    made like, rank 0 emits the asked run, every rank's emitted pairs lie
+    in pair_idx once each, the rest is filler; the plain reduction sums
+    every rank with pairs."""
+    torch.set_num_threads(1)
+    K, PC = 300, 6000
+    like = (torch.zeros((PC, 16), dtype=torch.bfloat16),
+            torch.zeros(PC, dtype=torch.int32),
+            torch.zeros(K, dtype=torch.int32))
+    (slab, ids, prc), kmax = kernel_ab.long_run_view(4100, like, 0)
+    assert slab.shape == (PC, 16) and slab.dtype == torch.bfloat16
+    assert ids.dtype == prc.dtype == torch.int32 and prc.shape == (K,)
+    assert kmax == int(prc[0]) == 4100 and int(prc[1:].max()) <= 3
+    assert torch.equal(torch.bincount(ids.long(), minlength=K + 1)[:K],
+                       prc.long())
+    assert int((ids == K).sum()) == PC - int(prc.sum())
+    red = hopper_raster.seg_reduce_plain(slab, ids, prc, kmax)
+    assert torch.equal((red != 0).any(dim=1), prc > 0)
