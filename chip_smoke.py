@@ -1,13 +1,15 @@
 """Drive the PyTorch/CUDA port (``splatloc_tpu_torch``) on one NVIDIA GPU.
 
 The quickest proof that the port starts on the card. It drives the port's
-two main paths through the entry points a user calls: serving the forward
-render of a Gaussian map (``raster.render``) at the size of the JAX
+three main paths through the entry points a user calls: serving the
+forward render of a Gaussian map (``raster.render``) at the size of the JAX
 package's bench scene, 100,000 Gaussians with C = 4 channels (RGB plus
 kp_score), SH degree 0, seen through the Replica calibration (640x480,
-configs/replica/base_config.yaml); and the mapping trainer
+configs/replica/base_config.yaml); the mapping trainer
 (``train.mapping.MappingTrainer``) on that configuration, at its full width
-and its CLI's capacity of 2^19 Gaussians. Phases:
+and its CLI's capacity of 2^19 Gaussians; and localization of query images
+through ``cli/test.py``'s ``EvalSession`` (descriptor field, 2D-3D
+matching, PnP and render-loss pose refinement). Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
              and ``nvidia-smi``'s name and power limit
@@ -50,6 +52,22 @@ and its CLI's capacity of 2^19 Gaussians. Phases:
              mapping step
 10. repeat   two trainers with the same seed (two keyframes, ten
              iterations) give bit-identical scenes
+11. localize queries localized through ``cli/test.py``'s ``EvalSession``
+             on room_0's configuration (640x480, decoder 4 x 128 -> 256,
+             16-level hash grid at 2^19): phase 9's room of 100,000 splats
+             inside room_0's bound with a tenth of them as key Gaussians,
+             a decoder from ``--seed``, and a Replica-format dataset
+             rendered from the map (8 database frames, 8 queries 3-10 cm
+             and 1-3 deg off, score maps, a retrieval table, query
+             features from the decoder plus noise); ``eval_pose`` with
+             render-loss refinement, ``eval_rendering`` and
+             ``eval_selection``, with the launch counts set to 0 just
+             before and read just after; every query must solve, the
+             medians stay under LOC_LIMITS and refinement no worse than
+             PnP; the three kernels against their plain versions on the
+             last query's refinement view; query 0 on the card against the
+             CPU path; per-stage times, a profile of one query and
+             ``superpoint.extract``'s time
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -62,6 +80,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -168,20 +187,23 @@ def make_scene(n: int, seed: int, device) -> GaussianScene:
         alive=torch.ones((n,), dtype=torch.bool, device=device), sh_degree=0)
 
 
-def make_room_scene(n: int, seed: int, device) -> GaussianScene:
+def make_room_scene(n: int, seed: int, device, half_w: float = 3.0,
+                    half_h: float = 2.0, depth: float = 8.0) -> GaussianScene:
     """A room for the trainer's keyframes: ``n`` flat splats (3-5 cm across,
     2.5 mm thick) on the back wall, side walls, floor and ceiling of a
-    6 x 4 x 8 m box, the camera inside at the origin facing the back wall,
-    opacities in [0.6, 0.95], channels in [0, 1]. Its rendered depth is a
-    surface's, as a depth sensor reports it; the bench scene's random
-    volume renders a depth that jumps by metres between neighbouring
-    pixels, so the keyframe initialisation would size its splats tens of
-    tiles wide and overflow the binning's tile caps."""
+    2 half_w x 2 half_h x depth box (6 x 4 x 8 m), the camera inside at the
+    origin facing the back wall, opacities in [0.6, 0.95], channels in
+    [0, 1]. Its rendered depth is a surface's, as a depth sensor reports
+    it; the bench scene's random volume renders a depth that jumps by
+    metres between neighbouring pixels, so the keyframe initialisation
+    would size its splats tens of tiles wide and overflow the binning's
+    tile caps."""
     rng = np.random.default_rng(seed + 3)
+    w, h, d = half_w, half_h, depth
     # (axis of the normal, its coordinate, ranges of the other two axes)
-    walls = [(2, 8.0, (-3, 3), (-2, 2)),
-             (0, -3.0, (-2, 2), (0, 8)), (0, 3.0, (-2, 2), (0, 8)),
-             (1, -2.0, (-3, 3), (0, 8)), (1, 2.0, (-3, 3), (0, 8))]
+    walls = [(2, d, (-w, w), (-h, h)),
+             (0, -w, (-h, h), (0, d)), (0, w, (-h, h), (0, d)),
+             (1, -h, (-w, w), (0, d)), (1, h, (-w, w), (0, d))]
     areas = np.array([(a[1] - a[0]) * (b[1] - b[0])
                       for _, _, a, b in walls], float)
     which = rng.choice(len(walls), size=n, p=areas / areas.sum())
@@ -456,17 +478,21 @@ def event_ms(fn, reps: int, warmup: int = 2, host_ahead: bool = True) -> float:
                        f"slept {slept:.3f} ms (does it synchronise?)")
 
 
-def profile(fn, wall_ms: float, reps: int) -> dict:
+def profile(fn, wall_ms: float, reps: int, warm: bool = False) -> dict:
     """Where the time of one call of ``fn`` goes: torch.profiler over
-    ``reps`` calls after a warm-up call. Device busy is the summed time of
-    the device-side events (kernels, copies, fills) per call; the idle share
-    is the rest of ``wall_ms``, the unprofiled time of one call (the
-    profiler itself slows the host)."""
+    ``reps`` calls after a warm-up call (none when ``warm``: ``fn`` has
+    run already). Device busy is the summed time of the device-side events
+    (kernels, copies, fills) per call; the idle share is the rest of
+    ``wall_ms``, the unprofiled time of one call (the profiler itself slows
+    the host). A warm ``fn`` is traced on the device alone: a query's
+    quarter of a million host ops take the profiler minutes to sort."""
     from torch.profiler import ProfilerActivity
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if warm else [ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1064,6 +1090,466 @@ def determinism_phase(scene, seed: int, device,
         f"opacity and alive ({int(a.scene.num_alive)} Gaussians alive)")
 
 
+# --------------------------------------------------------------------------
+# phase 11: localization through cli/test.py's EvalSession
+# --------------------------------------------------------------------------
+
+LOCALIZE_CONFIG = REPO / "configs" / "replica" / "room_0.yaml"
+N_SEQ1_FRAMES = 40      # Sequence_1; the Replica loader keeps every 5th
+N_QUERIES = 8
+KEY_FRACTION = 0.1      # ~10,000 of the map's splats are key Gaussians
+MAX_QUERY_KP = 4096
+QUERY_PX_NOISE = 0.5
+# per component of a unit 256-vector: a norm of 0.32, cosine ~0.95
+DESC_NOISE = 0.02
+LANDMARK_NUM = 5000
+# the phase 9 room shrunk to 4.4 x 2.8 x 7.6 m and turned so its depth
+# runs along x and its height along z: inside room_0's bound (x -1..7,
+# y -1.3..3.7, z -1.7..1.4; configs/replica/room_0.yaml)
+ROOM_BOX = dict(half_w=2.2, half_h=1.4, depth=7.6)
+ROOM_TO_WORLD_R = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float32)
+ROOM_TO_WORLD_T = np.array([-0.8, 1.2, -0.15], np.float32)
+# limits of the phase, from a CPU rehearsal of it (160x120, 20,000 splats,
+# two queries: refined medians 1.6 mm and 0.028 deg, PnP's 2.4 mm and
+# 0.42 deg), about three times the refined medians there
+LOC_LIMITS = {"match_median_t_m": 0.005, "match_median_r_deg": 0.1}
+# the card against the port's CPU path on one query: decode rounds its MLP
+# operands to bf16 after float32 sums taken in another order (a sum one
+# ulp apart can round to the next bf16 value); the similarity is a 256-term
+# float32 dot product; the auction runs on one similarity matrix on both
+# (elementwise arithmetic and maxima only: exact); PnP's SVDs and solves
+# differ in rounding
+CARD_CPU_LIMITS = {"decode": 1e-4, "sim": 1e-6, "pnp_r": 1e-4,
+                   "pnp_t": 1e-4}
+
+
+def room0_scene(n: int, seed: int, device) -> GaussianScene:
+    """Phase 9's room (``make_room_scene``) inside room_0's bound, with a
+    seeded tenth of its splats as key Gaussians (marker 0.9, the rest 0)."""
+    room = make_room_scene(n, seed, device, **ROOM_BOX)
+    R = torch.from_numpy(ROOM_TO_WORLD_R).to(device)
+    t = torch.from_numpy(ROOM_TO_WORLD_T).to(device)
+    # the room's splats are axis-aligned (identity quaternions): turned,
+    # each carries the turn's quaternion
+    q = transforms.matrix_to_quat(R)
+    key = np.random.default_rng(seed + 11).random(n) < KEY_FRACTION
+    return room.replace(
+        xyz=room.xyz @ R.T + t, rotation=q.expand(n, 4).contiguous(),
+        marker=torch.from_numpy(np.where(key, 0.9, 0.0).astype(
+            np.float32)[:, None]).to(device))
+
+
+def room_to_world(c2w_room: np.ndarray) -> np.ndarray:
+    T = np.eye(4, dtype=np.float64)
+    T[:3, :3], T[:3, 3] = ROOM_TO_WORLD_R, ROOM_TO_WORLD_T
+    return T @ c2w_room
+
+
+def seq1_poses(n: int) -> np.ndarray:
+    """World c2w [n, 4, 4] along a path inside the room: 0.8 m sideways,
+    0.3 m forward, a yaw sweep of +-11 deg, a slow bob."""
+    out = []
+    for i in range(n):
+        s = i / max(n - 1, 1)
+        a = -0.2 + 0.4 * s
+        c2w = np.eye(4)
+        c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                       [-np.sin(a), 0, np.cos(a)]]
+        c2w[:3, 3] = [-0.4 + 0.8 * s, 0.1 * np.sin(i / 6.0), 0.3 + 0.3 * s]
+        out.append(room_to_world(c2w))
+    return np.stack(out)
+
+
+def query_poses(db_c2w: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """Query ``q`` 3-10 cm and 1-3 deg from database pose ``q % len``
+    (a seeded direction and axis in the camera frame)."""
+    rng = np.random.default_rng(seed + 12)
+    out = []
+    for q in range(n):
+        d = rng.normal(size=3)
+        ax = rng.normal(size=3)
+        xi = np.concatenate([d / np.linalg.norm(d) * rng.uniform(0.03, 0.10),
+                             ax / np.linalg.norm(ax)
+                             * np.radians(rng.uniform(1.0, 3.0))])
+        delta = np.linalg.inv(transforms.se3_exp(
+            torch.tensor(xi, dtype=torch.float64)).numpy())
+        # se3_exp's translation is V rho; place the centre exactly
+        delta[:3, 3] = xi[:3]
+        out.append(db_c2w[q % len(db_c2w)] @ delta)
+    return np.stack(out)
+
+
+def render_rgbd(scene, cam) -> tuple[np.ndarray, np.ndarray]:
+    """(RGB uint8 [H,W,3], depth uint16 mm [H,W]) of one view, as a sensor
+    gives them: depth is the rendered expected depth over alpha where
+    alpha > 0.5, else 0."""
+    with torch.no_grad():
+        out = render(scene, cam, RasterConfig(use_pallas=True))
+    rgb = (out["render"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    alpha = out["opacity"]
+    depth = torch.where(alpha > 0.5, out["depth"] / alpha.clamp_min(0.5),
+                        torch.zeros_like(alpha))
+    mm = (depth * 1000).clamp(0, 65535).to(torch.int32).cpu().numpy()
+    return rgb, mm.astype(np.uint16)
+
+
+def visible_keys(scene, cam, key_idx) -> tuple[np.ndarray, np.ndarray]:
+    """(indices into key_idx, pixel coords) of the key Gaussians in the
+    view (z > 0.2, inside the image), on the rasterizer's pixel grid, as
+    data/synthetic.py projects its landmarks. The room is a convex box
+    seen from inside: nothing in the frustum is hidden."""
+    uv, z = cam.project(scene.xyz[key_idx])
+    uv, z = uv.cpu().numpy(), z.cpu().numpy()
+    ok = ((z > 0.2) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
+          & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
+    return np.nonzero(ok)[0], uv[ok]
+
+
+def write_replica_dataset(config, scene, decoder_params, field_cfg, seed,
+                          device, n_queries: int = N_QUERIES) -> dict:
+    """The Replica-format dataset the session loads: Sequence_1 (rendered
+    RGB-D, traj_w_c.txt), score maps of the key Gaussians in each kept
+    database frame (0.9 at their rounded projections, data/synthetic.py:
+    104-112), Sequence_2 queries, netvlad_retrieval.txt (nearest database
+    pose first, synthetic.py:132-142) and query_features/<name>.npz (the
+    visible key Gaussians' projections, at most MAX_QUERY_KP, with 0.5 px
+    of noise; their decoder descriptors plus noise, re-normalised)."""
+    from PIL import Image
+    from splatloc_tpu_torch.fields import decode
+
+    ds_dir = Path(config["Dataset"]["dataset_path"])
+    gen = Path(config["Dataset"]["generated_folder"]) / ds_dir.name
+    for d in ("Sequence_1/rgb", "Sequence_1/depth", "Sequence_2/rgb",
+              "Sequence_2/depth"):
+        (ds_dir / d).mkdir(parents=True, exist_ok=True)
+    for d in ("score_map", "query_features"):
+        (gen / d).mkdir(parents=True, exist_ok=True)
+    cal = config["Dataset"]["Calibration"]
+    base = Camera.create(np.eye(4, dtype=np.float32), cal["fx"], cal["fy"],
+                         cal["cx"], cal["cy"], cal["width"], cal["height"],
+                         device=device)
+    key_idx = torch.nonzero(scene.marker[:, 0] > 0.005)[:, 0]
+    rng = np.random.default_rng(seed + 13)
+
+    def cam_of(c2w):
+        return base.replace_pose(torch.from_numpy(
+            np.linalg.inv(c2w).astype(np.float32)))
+
+    seq1 = seq1_poses(N_SEQ1_FRAMES)
+    for i, c2w in enumerate(seq1):
+        cam = cam_of(c2w)
+        rgb, mm = render_rgbd(scene, cam)
+        Image.fromarray(rgb).save(ds_dir / "Sequence_1/rgb" / f"rgb_{i}.png")
+        Image.fromarray(mm).save(ds_dir / "Sequence_1/depth"
+                                 / f"depth_{i}.png")
+        if i % 5 == 0:
+            _, uv = visible_keys(scene, cam, key_idx)
+            score = np.zeros((cal["height"], cal["width"]), np.float32)
+            ui, vi = np.round(uv[:, 0]).astype(int), np.round(uv[:, 1]).astype(
+                int)
+            ok = (ui < cal["width"]) & (vi < cal["height"])
+            score[vi[ok], ui[ok]] = 0.9
+            np.save(gen / "score_map" / f"rgb_{i}_score.npy", score)
+    np.savetxt(ds_dir / "Sequence_1/traj_w_c.txt", seq1.reshape(-1, 16))
+
+    kept = seq1[::5]
+    queries = query_poses(kept, n_queries, seed)
+    lines = []
+    for q, c2w in enumerate(queries):
+        cam = cam_of(c2w)
+        rgb, mm = render_rgbd(scene, cam)
+        Image.fromarray(rgb).save(ds_dir / "Sequence_2/rgb" / f"rgb_{q}.png")
+        Image.fromarray(mm).save(ds_dir / "Sequence_2/depth"
+                                 / f"depth_{q}.png")
+        sel, uv = visible_keys(scene, cam, key_idx)
+        if len(sel) > MAX_QUERY_KP:
+            pick = np.sort(rng.choice(len(sel), MAX_QUERY_KP, replace=False))
+            sel, uv = sel[pick], uv[pick]
+        uv = uv + rng.normal(0, QUERY_PX_NOISE, uv.shape)
+        with torch.no_grad():
+            desc = decode(decoder_params, scene.xyz[key_idx[torch.from_numpy(
+                sel).to(device)]], field_cfg).cpu().numpy()
+        desc = desc + rng.normal(0, DESC_NOISE, desc.shape)
+        desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+        np.savez(gen / "query_features" / f"rgb_{q}.npz",
+                 keypoints=uv.astype(np.float32),
+                 descriptors=desc.T.astype(np.float32))
+        d = [np.linalg.norm(c2w[:3, 3] - k[:3, 3])
+             + np.abs(c2w[:3, :3] - k[:3, :3]).sum() * 0.1 for k in kept]
+        lines.append(f"rgb_{q} " + " ".join(f"rgb_{5 * j}"
+                                            for j in np.argsort(d)[:5]))
+    np.savetxt(ds_dir / "Sequence_2/traj_w_c.txt", queries.reshape(-1, 16))
+    (gen / "netvlad_retrieval.txt").write_text("\n".join(lines) + "\n")
+    return {"db_frames": len(kept), "queries": len(queries)}
+
+
+def localize_config(tmp: str, changes: dict | None = None) -> dict:
+    """room_0's configuration (the port's load_config) with the dataset,
+    generated folder and results under ``tmp``; ``changes`` replace
+    calibration fields (a CPU rehearsal's smaller image)."""
+    config = load_config(str(LOCALIZE_CONFIG))
+    config["Dataset"]["dataset_path"] = str(Path(tmp) / "replica" / "room_0")
+    config["Dataset"]["generated_folder"] = str(Path(tmp) / "generated")
+    config["Results"]["save_dir"] = str(Path(tmp) / "results")
+    config["Dataset"]["Calibration"].update(changes or {})
+    return config
+
+
+def card_cpu_check(session, seed: int) -> dict:
+    """Query 0 on the card against the port's CPU path: decode of its
+    database points, the similarity matrix, the auction on one similarity
+    matrix (its first 512 query rows: the whole auction on the host CPU
+    takes minutes, hundreds of rounds over a 4,096 x 6,664 matrix), and
+    PnP with one
+    set of injected priorities on all its matches (1,024 hypotheses)."""
+    from splatloc_tpu_torch.fields import decode
+    from splatloc_tpu_torch.match import hungarian, pnp
+
+    loc = session.make_localizer()
+    ds = session.train_dataset
+    name = session.test_dataset.index_to_name(0)
+    db_frame = ds.get_frame(ds.name_to_index(loc.retrieval_table[name][0]))
+    pts3d, feats, _ = loc.get_frustum_points(db_frame)
+    cpu_params = {"table": session.decoder_params["table"].cpu(),
+                  "layers": [w.cpu() for w in
+                             session.decoder_params["layers"]]}
+    pts = torch.from_numpy(np.asarray(pts3d, np.float32))
+    feats_cpu = decode(cpu_params, pts, session.field_cfg)
+    res = {"points": int(pts.shape[0]),
+           "decode": float((feats.cpu() - feats_cpu).abs().max())}
+    qf = loc.query_features(name)
+    q = torch.from_numpy(qf["descriptors"])
+    sim_cpu = hungarian._sim_matrix(q, feats_cpu.T, loc.sim_thresh)
+    sim_card = hungarian._sim_matrix(q.cuda(), feats_cpu.T.cuda(),
+                                     loc.sim_thresh)
+    res["sim"] = float((sim_card.cpu() - sim_cpu).abs().max())
+    sub = sim_cpu[:512]
+    a_cpu = hungarian.auction_assignment(sub, eps=1e-4)
+    a_card = hungarian.auction_assignment(sub.cuda(), eps=1e-4)
+    res["auction_rows"] = int(sub.shape[0])
+    res["auction_same"] = bool(torch.equal(a_card.cpu(), a_cpu))
+    # the matches of the query as the card makes them (the whole auction on
+    # the host CPU would take minutes)
+    matches, _ = hungarian.hungarian_solve(qf["descriptors"], feats.T,
+                                           device="cuda")
+    q2d = qf["keypoints"][matches[0]].astype(np.float32)
+    p3d = np.asarray(pts3d, np.float32)[matches[1]]
+    g = torch.Generator().manual_seed(seed)
+    pri = torch.rand((1024, matches.shape[1]), generator=g)
+    r_cpu = pnp.solve_pnp_ransac(q2d, p3d, session.eval_K,
+                                 inlier_px=session.inlier_px, priorities=pri,
+                                 device="cpu")
+    r_card = pnp.solve_pnp_ransac(q2d, p3d, session.eval_K,
+                                  inlier_px=session.inlier_px, priorities=pri,
+                                  device="cuda")
+    res["pnp_matches"] = int(matches.shape[1])
+    res["pnp_inliers"] = (r_card["num_inliers"], r_cpu["num_inliers"])
+    res["pnp_r"] = float(np.abs(r_card["r"] - r_cpu["r"]).max())
+    res["pnp_t"] = float(np.abs(r_card["t"] - r_cpu["t"]).max())
+    log("localize: query 0 on the card vs the CPU path " + json.dumps(res)
+        + f" (limits {json.dumps(CARD_CPU_LIMITS)})")
+    bad = [k for k, lim in CARD_CPU_LIMITS.items() if not res[k] <= lim]
+    if (bad or not res["auction_same"]
+            or res["pnp_inliers"][0] != res["pnp_inliers"][1]):
+        raise AssertionError(f"card and CPU path differ on query 0: {res}")
+    return res
+
+
+def localize_phase(seed: int, device, card: str, n: int = N_GAUSSIANS,
+                   calib: dict | None = None,
+                   landmark_num: int = LANDMARK_NUM,
+                   n_queries: int = N_QUERIES) -> dict:
+    """Phase 11: queries localized through cli/test.py's EvalSession on
+    room_0's configuration (eval_pose with render-loss refinement, then
+    eval_rendering and eval_selection), with every kernel's launch count
+    set to 0 just before and read just after."""
+    from splatloc_tpu_torch.cli.test import EvalSession
+    from splatloc_tpu_torch.cli.config import save_dir_for
+    from splatloc_tpu_torch.eval import metrics
+    from splatloc_tpu_torch.fields import FeatureFieldConfig, init_decoder
+    from splatloc_tpu_torch.match.localize import PAIR_CFG, _level_cam_gt
+    from splatloc_tpu_torch.train.decoder_train import save_params
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="splatloc_localize_")
+    config = localize_config(tmp, calib)
+    save_dir = save_dir_for(config)
+    scene = room0_scene(n, seed, device)
+    ply.save_scene(scene, str(Path(save_dir) / "point_cloud" / "final"
+                              / "point_cloud.ply"))
+    field_cfg = FeatureFieldConfig.from_config(config)
+    params = init_decoder(field_cfg, torch.Generator(device).manual_seed(seed),
+                          device=device)
+    save_params(params, str(Path(save_dir) / "train_feat" / "ckpt.npz"))
+    made = write_replica_dataset(config, scene, params, field_cfg, seed,
+                                 device, n_queries)
+    g = field_cfg.grid_config
+    log(f"localize: room_0 config {config['Dataset']['Calibration']['width']}"
+        f"x{config['Dataset']['Calibration']['height']}, fx "
+        f"{config['Dataset']['Calibration']['fx']}; decoder "
+        f"{field_cfg.num_layers} x {field_cfg.hidden_dim} -> "
+        f"{field_cfg.final_dim}, hash grid {g.n_levels} x 2^"
+        f"{g.log2_hashmap_size} (resolutions {g.resolutions[0]}-"
+        f"{g.resolutions[-1]}); map {n} splats, "
+        f"{int((scene.marker > 0.005).sum())} key; {json.dumps(made)}; "
+        f"set-up {time.perf_counter() - t_phase:.1f} s")
+
+    session = EvalSession(config, save_dir, refine_with_render_loss=True,
+                          device=device)
+    scene_on = session.scene                  # the map as the session loaded it
+    per_query = []
+
+    def on_query(name, loc, retrieval_ret, match_ret, frame):
+        rec = {"name": name, "success": bool(match_ret["success"]),
+               "stages_ms": {k: v * 1e3 for k, v in loc.last_stages.items()},
+               "retrieval_err": metrics.pose_errors(
+                   retrieval_ret["r"], retrieval_ret["t"], frame["c2w"])}
+        info = match_ret.get("refine_info")
+        if info is not None:
+            rec["pnp_err"] = metrics.pose_errors(
+                match_ret["pnp_r"], match_ret["pnp_t"], frame["c2w"])
+            rec["refine"] = {"seed_evals": info["seed_evals"],
+                             "syncs": info["syncs"],
+                             "guard_kept_start": info["guard_kept_start"],
+                             "levels": info["levels"]}
+            # the pair build's drop counters of each level's view at the
+            # refined pose
+            c2w = np.eye(4, dtype=np.float32)
+            c2w[:3, :3], c2w[:3, 3] = match_ret["r"], match_ret["t"]
+            ds = session.train_dataset
+            cam1 = Camera.create(np.linalg.inv(c2w), ds.fx, ds.fy, ds.cx,
+                                 ds.cy, ds.width, ds.height, device=device)
+            gt = torch.zeros((ds.height, ds.width, 3), device=device)
+            for lv in rec["refine"]["levels"]:
+                cam_s, _ = _level_cam_gt(cam1, gt, lv["scale"])
+                nd, nt, nv = drop_counters(scene_on, cam_s, PAIR_CFG)
+                lv.update(n_dropped=nd, n_trunc=nt, n_vis_dropped=nv)
+            rec["w2c"] = np.linalg.inv(c2w)
+        rec["match_err"] = metrics.pose_errors(match_ret["r"], match_ret["t"],
+                                               frame["c2w"])
+        per_query.append(rec)
+        log(f"localize: query {name} " + json.dumps(
+            {k: v for k, v in rec.items() if k != "w2c"}))
+
+    synced(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    m_t, m_r = session.eval_pose(on_query=on_query)
+    synced(device)
+    pose_s = time.perf_counter() - t0
+    launches_pose = read_launches()
+    report = (Path(save_dir) / "eval_pose.txt").read_text()
+    t0 = time.perf_counter()
+    rendering = session.eval_rendering()
+    rendering_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sel_t, sel_r = session.eval_selection(landmark_num=landmark_num)
+    synced(device)
+    selection_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    queries = per_query[:len(m_t)]
+    solved = sum(r["success"] for r in queries)
+    med = {k: [float(np.median([r[k][1] for r in queries])),
+               float(np.median([r[k][0] for r in queries]))]
+           for k in ("retrieval_err", "match_err")}
+    med["pnp_err"] = [float(np.median([r["pnp_err"][1] for r in queries
+                                       if "pnp_err" in r])),
+                      float(np.median([r["pnp_err"][0] for r in queries
+                                       if "pnp_err" in r]))]
+    stages = {}
+    for r in queries:
+        for k, v in r["stages_ms"].items():
+            stages.setdefault(k, []).append(v)
+    res = {"queries": len(queries), "solved": solved,
+           "median_m_deg": {"retrieval": med["retrieval_err"],
+                            "pnp": med["pnp_err"],
+                            "refined": med["match_err"]},
+           "stage_ms_mean": {k: float(np.mean(v)) for k, v in stages.items()},
+           "stage_ms_median": {k: float(np.median(v))
+                               for k, v in stages.items()},
+           "eval_pose_s": pose_s, "eval_rendering_s": rendering_s,
+           "eval_selection_s": selection_s, "rendering": rendering,
+           "selection_median_m_deg": [float(np.median(sel_t)),
+                                      float(np.median(sel_r))],
+           "launches_eval_pose": launches_pose, "launches": launches}
+    log(f"localize on {card}: " + json.dumps(res))
+    res["query0_total_ms"] = queries[0]["stages_ms"]["total"]
+    log("localize: eval_pose.txt: " + report.replace("\n", " | "))
+    if solved != len(queries) or len(queries) != n_queries:
+        raise AssertionError(f"{solved} of {len(queries)} queries solved "
+                             f"(expected {n_queries})")
+    mt, mr = med["match_err"][0], med["match_err"][1]
+    pt, pr = med["pnp_err"][0], med["pnp_err"][1]
+    if not (mt <= LOC_LIMITS["match_median_t_m"]
+            and mr <= LOC_LIMITS["match_median_r_deg"]):
+        raise AssertionError(f"refined median {mt} m, {mr} deg past the "
+                             f"limits {LOC_LIMITS}")
+    if not (mt <= pt and mr <= pr):
+        raise AssertionError(f"refined median ({mt} m, {mr} deg) worse than "
+                             f"PnP's ({pt} m, {pr} deg)")
+    if any(v < 1 for v in launches.values()):
+        raise AssertionError(f"a kernel did not launch in the phase: "
+                             f"{launches}")
+
+    # the kernels against their plain versions on the last query's
+    # full-resolution refinement view (at its refined pose)
+    ds = session.train_dataset
+    last = [r for r in queries if "w2c" in r][-1]
+    cam = Camera.create(last["w2c"], ds.fx, ds.fy, ds.cx, ds.cy, ds.width,
+                        ds.height, device=device)
+    with torch.no_grad():
+        walk_args, C, pr0 = walk_inputs(scene_on, cam, PAIR_CFG)
+        got = hopper_raster.fwd_pairwalk(*walk_args, C, PAIR_CFG)
+        ref = hopper_raster.fwd_pairwalk_plain(*walk_args, C, PAIR_CFG)
+        synced(device)
+        mf = compare_walk(got, ref, C)
+        _, _, _, errs = check_backward(walk_args, got, pr0, C, PAIR_CFG, seed,
+                                       ds.width, ds.height)
+    res["kernel_errs"] = {"fwd_pairwalk": mf["max_abs_err"], **errs}
+    log("localize: kernels vs plain on the last query's refinement view "
+        + json.dumps(res["kernel_errs"]))
+    res["session"] = session
+    res["tmp"] = tmp
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def localize_extras(session, res: dict, card: str) -> None:
+    """Phase 11's measurements outside the counted run: the card against
+    the CPU path on query 0, a torch.profiler breakdown of one query, and
+    superpoint.extract's time on a frame of the configuration's size
+    (random weights)."""
+    from splatloc_tpu_torch.match import superpoint
+
+    t0 = time.perf_counter()
+    card_cpu_check(session, 0)
+    log(f"localize: card vs CPU check {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loc = session.make_localizer()
+    ds = session.test_dataset
+    frame = ds.get_frame(0)
+    name = ds.index_to_name(0)
+    # the unprofiled wall time of this query is the counted run's, and the
+    # counted run warmed it
+    log("localize: profile of one query (refinement on): " + json.dumps(
+        profile(lambda: loc.localize(frame, name),
+                res["query0_total_ms"], 1, warm=True)))
+    log(f"localize: profile {time.perf_counter() - t0:.1f} s")
+    sp = superpoint.init_params(torch.Generator("cuda").manual_seed(0),
+                                device="cuda")
+    rgb = ds.load_image(0)
+    gray = torch.as_tensor((0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
+                            + 0.114 * rgb[..., 2]).astype(np.float32),
+                           device="cuda")
+    ms = event_ms(lambda: superpoint.extract(sp, gray), 5, host_ahead=False)
+    out = superpoint.extract(sp, gray)
+    log(f"localize: superpoint.extract on {tuple(gray.shape)} (random "
+        f"weights) {ms:.3f} ms host-paced on {card}, "
+        f"{int(out['valid'].sum())} valid keypoints")
+    res["superpoint_ms"] = ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1171,20 +1657,33 @@ def main(argv=None) -> int:
 
     # 10. repeat runs are bit-identical
     determinism_phase(room, args.seed, dev)
+    del room
 
-    paths = {"serve": launches, "train": train["launches"]}
+    # 11. localize: the third main path, counts set to 0 just before, read
+    # just after (inside localize_phase)
+    t11 = time.perf_counter()
+    loc = localize_phase(args.seed, dev, card)
+    localize_extras(loc.pop("session"), loc, card)
+    shutil.rmtree(loc.pop("tmp"), ignore_errors=True)
+    log(f"localize: phase wall {time.perf_counter() - t11:.1f} s "
+        f"(the counted run and its checks {loc['phase_s']:.1f} s)")
+
+    paths = {"serve": launches, "train": train["launches"],
+             "localize": loc["launches"]}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),
                 "launches_by_path": {n: p.get(k, 0)
                                      for n, p in paths.items()}}
 
-    # the worst error against the plain version over phases 5, 8 and 9
+    # the worst error against the plain version over phases 5, 8, 9 and 11
     m["max_abs_err"] = max(m["max_abs_err"],
-                           train["kernel_errs"]["fwd_pairwalk"])
+                           train["kernel_errs"]["fwd_pairwalk"],
+                           loc["kernel_errs"]["fwd_pairwalk"])
     for k in ("bwd_pairwalk", "seg_reduce"):
         bwd[k]["max_abs_err"] = max(bwd[k]["max_abs_err"],
-                                    train["kernel_errs"][k])
+                                    train["kernel_errs"][k],
+                                    loc["kernel_errs"][k])
     # the reduction on the train path's own view, beside serve view 0's
     bwd["seg_reduce"]["train_view"] = train["kernel_errs"][
         "seg_reduce_timing"]

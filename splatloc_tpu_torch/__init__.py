@@ -6,7 +6,8 @@ PyTorch; every Pallas kernel of the JAX package becomes a kernel written by
 hand for ``sm_90a`` (sources under ``csrc/``, built with ``nvcc`` at first
 use). The package imports neither JAX nor anything of ``splatloc_tpu``.
 
-Ported so far (the serving forward render and the mapping trainer):
+Ported so far (the serving forward render, the mapping trainer and
+localization):
 
 - ``core``    rotations, SE(3), spherical harmonics, the pinhole ``Camera``
 - ``raster``  projection, depth sort, pair binning, the pair-walk forward
@@ -15,9 +16,16 @@ Ported so far (the serving forward render and the mapping trainer):
 - ``scene``   ``GaussianScene`` with slot management, Adam, densification,
               keyframe initialisation and the reference PLY format
 - ``knn``     mean squared distance to the 3 nearest neighbours
-- ``train``   losses, the mapping trainer and its checkpoints
-- ``cli``     the YAML config loader
-- ``convert`` JAX-side numpy fields -> port objects
+- ``train``   losses, the mapping trainer and its checkpoints, the
+              descriptor field's checkpoints
+- ``fields``  the hash-grid descriptor field (``decode``)
+- ``match``   frustum gather, auction matching, PnP+RANSAC, SuperPoint,
+              the ``Localizer`` and render-loss pose refinement
+- ``data``    the Replica / 12-Scenes loaders and the native IO layer
+- ``eval``    PSNR / SSIM / LPIPS, pose errors, landmark selection
+- ``dist``    which process writes reports
+- ``cli``     the YAML config loader and ``cli.test`` (``EvalSession``)
+- ``convert`` JAX-side numpy fields and weights -> port objects
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 CPU tensors each kernel wrapper runs its plain PyTorch version.

@@ -3,7 +3,8 @@
 A JAX-side ``GaussianScene``, ``Camera``, Adam state, densification stats or
 whole trainer state crosses into the port as numpy arrays
 (``{name: np.asarray(getattr(obj, name))}``), so neither package imports
-the other.
+the other; so do the descriptor field's params and the SuperPoint and LPIPS
+weights (HWIO conv kernels become torch's OIHW).
 """
 from __future__ import annotations
 
@@ -49,6 +50,40 @@ def camera_from_numpy(fields: dict, device="cuda") -> Camera:
                          znear=float(fields.get("znear", 0.01)),
                          zfar=float(fields.get("zfar", 100.0)),
                          device=device)
+
+
+def decoder_from_numpy(params: dict, device="cuda") -> dict:
+    """Descriptor-field params on ``device`` from the JAX decoder's
+    ``{"table": [L, T, F], "layers": [[in, out], ...]}``."""
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+    return {"table": t(params["table"]),
+            "layers": [t(w) for w in params["layers"]]}
+
+
+def _convs_from_numpy(params: dict, device) -> dict:
+    """HWIO conv kernels (4-d ``*_w``) -> torch's OIHW; everything else
+    (biases, LPIPS' linear heads) as it is, all float32 on ``device``."""
+    out = {}
+    for k, x in params.items():
+        x = np.array(x, np.float32)
+        if k.endswith("_w") and x.ndim == 4:
+            x = np.ascontiguousarray(x.transpose(3, 2, 0, 1))
+        out[k] = torch.as_tensor(x, device=device)
+    return out
+
+
+def superpoint_from_numpy(params: dict, device="cuda") -> dict:
+    """SuperPoint params (the JAX package's HWIO layout, as
+    ``match/superpoint.py`` and ``tools/convert_superpoint.py`` write
+    them) -> the port's OIHW layout on ``device``."""
+    return _convs_from_numpy(params, device)
+
+
+def lpips_from_numpy(params: dict, device="cuda") -> dict:
+    """LPIPS AlexNet params (HWIO ``conv{i}_w``, ``conv{i}_b``, ``lin{i}``
+    [C]) -> the port's OIHW layout on ``device``."""
+    return _convs_from_numpy(params, device)
 
 
 def adam_from_numpy(step, m: dict, v: dict, device="cuda"):

@@ -1,0 +1,76 @@
+"""ctypes bindings for the native IO runtime (native/splatloc_io.cpp).
+
+The PNG readers of ``splatloc_tpu.data.native_io``, copied (the port
+imports nothing of the JAX package): the dataset loaders are their only
+caller yet; the PLY reader and the frame prefetcher come with the mapping
+CLI. ``native/`` is a C library of the repository, not a module of
+the JAX package, so the port loads the same ``libsplatloc_io.so``. It is
+built on first use if missing (g++ with libpng); every entry point has a
+pure-Python fallback, so the port works without the native layer — it is
+the fast path, not a dependency.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libsplatloc_io.so"))
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _load():
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if not os.path.exists(_LIB_PATH):
+            src = os.path.join(_NATIVE_DIR, "splatloc_io.cpp")
+            if not os.path.exists(src):
+                return None
+            try:
+                subprocess.run(
+                    ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", src,
+                     "-lpng", "-lz", "-lpthread", "-o", _LIB_PATH],
+                    check=True, capture_output=True, timeout=120)
+            except Exception:
+                return None
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+        except OSError:
+            return None
+        lib.sl_png_read_rgb8.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
+                                         ctypes.c_int, ctypes.c_int]
+        lib.sl_png_read_u16.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_int]
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def png_read_rgb(path: str, width: int, height: int) -> np.ndarray | None:
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty((height, width, 3), np.uint8)
+    rc = lib.sl_png_read_rgb8(path.encode(), out.ctypes.data, width, height)
+    return out if rc == 0 else None
+
+
+def png_read_depth16(path: str, width: int, height: int) -> np.ndarray | None:
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty((height, width), np.uint16)
+    rc = lib.sl_png_read_u16(path.encode(), out.ctypes.data, width, height)
+    return out if rc == 0 else None

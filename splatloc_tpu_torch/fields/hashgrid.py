@@ -1,0 +1,95 @@
+"""Multiresolution hash-grid encoding (tiny-cuda-nn's HashGrid).
+
+Port of ``splatloc_tpu.fields.hashgrid``: 16 levels x 2 features, base
+resolution 16, log2 hashmap size 19, per-level scale derived from the
+scene's desired resolution (reference models/encoding.py:15-45). Per-level
+corner indexing is dense where the level's corners fit in the table and a
+spatial hash beyond, with trilinear interpolation.
+
+The hash is the reference's uint32 multiply-and-xor with wraparound. torch
+has no general uint32 arithmetic, so it runs in int64 with each product
+masked to its low 32 bits: the same bits.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+_PRIMES = (1, 2654435761, 805459861)
+_U32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class HashGridConfig:
+    n_levels: int = 16
+    n_features: int = 2
+    base_resolution: int = 16
+    log2_hashmap_size: int = 19
+    desired_resolution: int = 512
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.log2_hashmap_size
+
+    @property
+    def per_level_scale(self) -> float:
+        if self.n_levels == 1:
+            return 1.0
+        return math.exp(math.log(self.desired_resolution /
+                                 self.base_resolution) /
+                        (self.n_levels - 1))
+
+    @property
+    def resolutions(self) -> tuple[int, ...]:
+        s = self.per_level_scale
+        return tuple(int(math.floor(self.base_resolution * s ** l))
+                     for l in range(self.n_levels))
+
+    @property
+    def out_dim(self) -> int:
+        return self.n_levels * self.n_features
+
+
+def init_hashgrid(cfg: HashGridConfig, generator: torch.Generator | None = None,
+                  scale: float = 1e-4, device="cuda") -> torch.Tensor:
+    """Table [L, T, F], uniform(-scale, scale) like tcnn's default init."""
+    u = torch.rand((cfg.n_levels, cfg.table_size, cfg.n_features),
+                   generator=generator, device=device)
+    return (2.0 * u - 1.0) * scale
+
+
+def _corner_index(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor,
+                  res: int, table_size: int) -> torch.Tensor:
+    """Grid corner (int64, in [0, res]) -> table index: dense layout when
+    the level fits in the table, spatial hash otherwise (tcnn's scheme)."""
+    n_corners = (res + 1) ** 3
+    if n_corners <= table_size:
+        return (ix * (res + 1) + iy) * (res + 1) + iz
+    h = (((ix * _PRIMES[0]) & _U32) ^ ((iy * _PRIMES[1]) & _U32)
+         ^ ((iz * _PRIMES[2]) & _U32))
+    return h % table_size
+
+
+def encode(table: torch.Tensor, pos01: torch.Tensor,
+           cfg: HashGridConfig) -> torch.Tensor:
+    """pos01 [B,3] in [0,1] -> [B, L*F] features (trilinear per level)."""
+    pos01 = torch.clamp(pos01, 0.0, 1.0)
+    outs = []
+    for l, res in enumerate(cfg.resolutions):
+        x = pos01 * res                               # [B,3]
+        x0 = torch.clamp(torch.floor(x).to(torch.int64), 0, res - 1)
+        w = x - x0.to(x.dtype)                        # [B,3] in [0,1]
+        feats = torch.zeros((pos01.shape[0], cfg.n_features),
+                            dtype=torch.float32, device=pos01.device)
+        for corner in range(8):
+            dx, dy, dz = (corner >> 2) & 1, (corner >> 1) & 1, corner & 1
+            idx = _corner_index(x0[:, 0] + dx, x0[:, 1] + dy, x0[:, 2] + dz,
+                                res, cfg.table_size)
+            weight = ((w[:, 0] if dx else 1 - w[:, 0])
+                      * (w[:, 1] if dy else 1 - w[:, 1])
+                      * (w[:, 2] if dz else 1 - w[:, 2]))
+            feats = feats + weight[:, None] * table[l, idx]
+        outs.append(feats)
+    return torch.cat(outs, dim=-1)

@@ -473,3 +473,122 @@ def test_rasterize_grads_on_card_match_cpu(cuda):
     for a, b in zip(grads[str(cuda)], grads["cpu"]):
         assert bool(torch.isfinite(a).all())
         assert rel_l2(a, b) <= 1e-3
+
+
+# --------------------------------------------------------------------------
+# localization on the card against the CPU path
+# --------------------------------------------------------------------------
+
+def test_decode_on_card_matches_cpu(cuda):
+    """The descriptor field at the Replica width (16 x 2^19 grid, 4 x 128
+    -> 256) on the card within 1e-4 of the CPU path (bf16 operands after
+    float32 sums taken in another order; see chip_smoke.CARD_CPU_LIMITS)."""
+    from splatloc_tpu_torch.fields import FeatureFieldConfig, decode
+    from splatloc_tpu_torch.fields import init_decoder
+    cfg = FeatureFieldConfig(bound=((-1.0, 7.0), (-1.3, 3.7), (-1.7, 1.4)))
+    p = init_decoder(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p["table"] = p["table"] * 5000.0           # a trained table's scale
+    rng = np.random.default_rng(1)
+    pos = torch.from_numpy(np.stack(
+        [rng.uniform(-1, 7, 2000), rng.uniform(-1.3, 3.7, 2000),
+         rng.uniform(-1.7, 1.4, 2000)], -1).astype(np.float32))
+    ref = decode(p, pos, cfg)
+    got = decode({"table": p["table"].to(cuda),
+                  "layers": [w.to(cuda) for w in p["layers"]]},
+                 pos.to(cuda), cfg)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4
+
+
+def test_auction_on_card_matches_cpu(cuda):
+    """The auction on one similarity matrix: the same assignment on both
+    devices (elementwise arithmetic and maxima only), in blocks of rounds,
+    rows > columns included."""
+    from splatloc_tpu_torch.match import hungarian
+    rng = np.random.default_rng(2)
+    d2 = rng.normal(size=(64, 300)).astype(np.float32)
+    d1 = d2[:, rng.permutation(300)[:200]] + 0.4 * rng.normal(
+        size=(64, 200)).astype(np.float32)
+    for a, b in ((d1, d2), (d2, d1)):
+        sim = hungarian._sim_matrix(torch.from_numpy(a), torch.from_numpy(b),
+                                    0.4)
+        if sim.shape[0] > sim.shape[1]:
+            sim = sim.T.contiguous()
+        ref = hungarian.auction_assignment(sim, eps=1e-4)
+        got = hungarian.auction_assignment(sim.to(cuda), eps=1e-4)
+        assert torch.equal(got.cpu(), ref)
+        sc = hungarian._sim_matrix(torch.from_numpy(a).to(cuda),
+                                   torch.from_numpy(b).to(cuda), 0.4)
+        s0 = hungarian._sim_matrix(torch.from_numpy(a), torch.from_numpy(b),
+                                   0.4)
+        assert float((sc.cpu() - s0).abs().max()) <= 1e-6
+
+
+def test_pnp_on_card_matches_cpu(cuda):
+    """PnP with one set of injected priorities: R, t within 1e-4 and the
+    same inliers on both devices."""
+    from splatloc_tpu_torch.match import pnp
+    rng = np.random.default_rng(3)
+    n = 300
+    pts3d = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                      rng.uniform(2, 6, n)], -1).astype(np.float32)
+    uv = pts3d[:, :2] / pts3d[:, 2:3] * 320.0 + np.array([320.0, 240.0])
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    uv[:60] += rng.uniform(50, 200, (60, 2)).astype(np.float32)
+    K = np.array([[320.0, 0, 320], [0, 320, 240], [0, 0, 1]])
+    pri = torch.rand((512, n), generator=torch.Generator().manual_seed(4))
+    a = pnp.solve_pnp_ransac(uv, pts3d, K, n_hypotheses=512, priorities=pri,
+                             device="cpu")
+    b = pnp.solve_pnp_ransac(uv, pts3d, K, n_hypotheses=512, priorities=pri,
+                             device=cuda)
+    assert a["success"] and b["success"]
+    assert a["num_inliers"] == b["num_inliers"]
+    np.testing.assert_array_equal(a["inliers"], b["inliers"])
+    assert np.abs(a["r"] - b["r"]).max() <= 1e-4
+    assert np.abs(a["t"] - b["t"]).max() <= 1e-4
+
+
+def test_refine_level_on_card_matches_cpu(cuda):
+    """One refinement level (forward walk, backward walk and reduction per
+    iteration) on the card against the CPU path's plain versions: the same
+    iteration count, xi within 1e-4, the start loss within 1e-5 relative
+    and the best loss within 1e-3 (it is taken at poses up to 1e-4 apart);
+    the three kernels launch on the card."""
+    from splatloc_tpu_torch.core import transforms
+    from splatloc_tpu_torch.match import localize
+    out = {}
+    for dev in ("cpu", cuda):
+        means, scales, quats, opac, colors = make_scene(11, dense=True)
+        n = means.shape[0]
+        sc = GaussianScene(
+            xyz=means.to(dev), f_dc=((colors[:, None, :3] - 0.5)
+                                     / 0.28209479177387814).to(dev),
+            f_rest=torch.zeros((n, 0, 3), device=dev),
+            scaling=torch.log(scales).to(dev), rotation=quats.to(dev),
+            opacity=torch.logit(opac)[:, None].to(dev),
+            marker=torch.zeros((n, 1), device=dev),
+            kp_score=colors[:, 3:].to(dev),
+            alive=torch.ones((n,), dtype=torch.bool, device=dev))
+        cam = Camera.create(np.eye(4, dtype=np.float32), 50.0, 50.0, W / 2,
+                            H / 2, W, H, device=dev)
+        with torch.no_grad():
+            gt = render(sc, cam, RasterConfig(use_pallas=True))["render"]
+        w2c0 = transforms.se3_exp(torch.tensor(
+            [0.02, -0.01, 0.01, 0.01, -0.01, 0.005], device=dev))
+        before = (hopper_raster.fwd_pairwalk.launches,
+                  hopper_raster.bwd_pairwalk.launches,
+                  hopper_raster.seg_reduce.launches)
+        xi, info = localize._refine_level(sc, cam, w2c0, gt, 8, 2e-3, 1e-4,
+                                          8)
+        after = (hopper_raster.fwd_pairwalk.launches,
+                 hopper_raster.bwd_pairwalk.launches,
+                 hopper_raster.seg_reduce.launches)
+        out[str(dev)] = (xi.cpu(), info, [b - a for a, b in zip(before,
+                                                                 after)])
+    (xc, ic, lc), (xg, ig, lg) = out["cpu"], out[str(cuda)]
+    assert lc == [0, 0, 0] and lg == [8, 8, 8]
+    assert ig["iters"] == ic["iters"] == 8
+    assert float((xg - xc).abs().max()) <= 1e-4
+    np.testing.assert_allclose(float(ig["loss0"]), float(ic["loss0"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(ig["loss"]), float(ic["loss"]),
+                               rtol=1e-3)

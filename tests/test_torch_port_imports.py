@@ -55,7 +55,22 @@ def test_port_imports_pull_in_no_jax():
                 "splatloc_tpu_torch.train.losses",
                 "splatloc_tpu_torch.train.mapping",
                 "splatloc_tpu_torch.train.checkpoint",
-                "splatloc_tpu_torch.cli.config", "chip_smoke", "kernel_ab"):
+                "splatloc_tpu_torch.cli.config",
+                "splatloc_tpu_torch.cli.test",
+                "splatloc_tpu_torch.fields.hashgrid",
+                "splatloc_tpu_torch.fields.decoder",
+                "splatloc_tpu_torch.train.decoder_train",
+                "splatloc_tpu_torch.match.frustum",
+                "splatloc_tpu_torch.match.hungarian",
+                "splatloc_tpu_torch.match.pnp",
+                "splatloc_tpu_torch.match.superpoint",
+                "splatloc_tpu_torch.match.localize",
+                "splatloc_tpu_torch.data.native_io",
+                "splatloc_tpu_torch.data.datasets",
+                "splatloc_tpu_torch.eval.metrics",
+                "splatloc_tpu_torch.eval.selection",
+                "splatloc_tpu_torch.dist.multihost",
+                "chip_smoke", "kernel_ab"):
         assert mod in report["imported"], mod
 
 
