@@ -9,7 +9,9 @@ configs/replica/base_config.yaml); the mapping trainer
 (``train.mapping.MappingTrainer``) on that configuration, at its full width
 and its CLI's capacity of 2^19 Gaussians; and localization of query images
 through ``cli/test.py``'s ``EvalSession`` (descriptor field, 2D-3D
-matching, PnP and render-loss pose refinement). Phases:
+matching, PnP and render-loss pose refinement); and the mapping CLI
+(``cli/train_gaussians.py``) from a dataset on disk to a saved map that
+``EvalSession`` localizes from. Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
              and ``nvidia-smi``'s name and power limit
@@ -66,8 +68,25 @@ matching, PnP and render-loss pose refinement). Phases:
              medians stay under LOC_LIMITS and refinement no worse than
              PnP; the three kernels against their plain versions on the
              last query's refinement view; query 0 on the card against the
-             CPU path; per-stage times, a profile of one query and
+             CPU path, with the host syncs of its auction counted (none
+             in a round, one per block of 20 rounds, one final read);
+             per-stage times, a profile of one query and
              ``superpoint.extract``'s time
+12. map      ``python -m splatloc_tpu_torch.cli.train_gaussians`` (its
+             ``main``) on phase 11's dataset: room_0's configuration at
+             640x480 and the CLI's capacity 2^19, the loader's 8 kept
+             Sequence_1 frames as keyframes x 10 mapping iterations, 200
+             colour-refinement iterations, a device trace of a steady
+             keyframe's block (its idle share against the untraced steady
+             step), with the launch counts set to 0 just before and read
+             just after; metrics.jsonl, the losses, the saved map (a load
+             and save gives the same bytes) and the trace are checked;
+             ``EvalSession`` renders the query views from the learned map
+             and localizes the queries from it; the three kernels against
+             their plain versions on query 0's view of the learned map;
+             the tiled blend (``use_pallas=False``) against the pair
+             kernels on tests/test_pallas.py's scene and on that view,
+             with the per-pixel oracle at any pixel past the limits
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -100,6 +119,7 @@ from splatloc_tpu_torch.scene import ply
 from splatloc_tpu_torch.scene.gaussians import GaussianScene
 from splatloc_tpu_torch.train import checkpoint
 from splatloc_tpu_torch.train.mapping import MappingConfig, MappingTrainer
+from splatloc_tpu_torch.utils.profiling import count_syncs
 
 WIDTH, HEIGHT = 640, 480
 N_GAUSSIANS = 100_000
@@ -1109,6 +1129,8 @@ LANDMARK_NUM = 5000
 ROOM_BOX = dict(half_w=2.2, half_h=1.4, depth=7.6)
 ROOM_TO_WORLD_R = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float32)
 ROOM_TO_WORLD_T = np.array([-0.8, 1.2, -0.15], np.float32)
+# the pair path (the three kernels), which refinement takes on the card
+PAIR_CFG = RasterConfig(use_pallas=True)
 # limits of the phase, from a CPU rehearsal of it (160x120, 20,000 splats,
 # two queries: refined medians 1.6 mm and 0.028 deg, PnP's 2.4 mm and
 # 0.42 deg), about three times the refined medians there
@@ -1328,6 +1350,7 @@ def card_cpu_check(session, seed: int) -> dict:
     a_card = hungarian.auction_assignment(sub.cuda(), eps=1e-4)
     res["auction_rows"] = int(sub.shape[0])
     res["auction_same"] = bool(torch.equal(a_card.cpu(), a_cpu))
+    res["auction_syncs"] = auction_syncs(sim_card)
     # the matches of the query as the card makes them (the whole auction on
     # the host CPU would take minutes)
     matches, _ = hungarian.hungarian_solve(qf["descriptors"], feats.T,
@@ -1352,7 +1375,47 @@ def card_cpu_check(session, seed: int) -> dict:
     if (bad or not res["auction_same"]
             or res["pnp_inliers"][0] != res["pnp_inliers"][1]):
         raise AssertionError(f"card and CPU path differ on query 0: {res}")
+    sy = res["auction_syncs"]
+    if not (sy["round"] == 0 and sy["auction"] == sy["blocks"]
+            and sy["read"] == 1):
+        raise AssertionError(f"the auction syncs more than once a block of "
+                             f"rounds plus the final read: {sy}")
     return res
+
+
+def auction_syncs(sim) -> dict:
+    """The host syncs of the auction on one similarity matrix on the card:
+    one round (none: no mask index), the whole auction_assignment (one read
+    of the unassigned count per block of 20 rounds) and the final read of
+    the assignment, beside the rounds that same run made (counted by
+    wrapping its round function) and its wall time."""
+    from splatloc_tpu_torch.match import hungarian
+    if sim.shape[0] > sim.shape[1]:
+        sim = sim.T.contiguous()
+    R, C = sim.shape
+    state = (torch.zeros((C,), device=sim.device),
+             torch.full((C,), -1, dtype=torch.int32, device=sim.device),
+             torch.full((R,), -1, dtype=torch.int32, device=sim.device))
+    one_round = hungarian._auction_round
+    _, n_round = count_syncs(lambda: one_round(sim, *state, 1e-4))
+    rounds = [0]
+
+    def counted(*a):
+        rounds[0] += 1
+        return one_round(*a)
+    hungarian._auction_round = counted
+    try:
+        t0 = time.perf_counter()
+        got, n_auction = count_syncs(lambda: hungarian.auction_assignment(
+            sim, eps=1e-4))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        hungarian._auction_round = one_round
+    _, n_read = count_syncs(lambda: got.cpu())
+    return {"matrix": [R, C], "rounds": rounds[0],
+            "blocks": -(-rounds[0] // 20), "round": n_round,
+            "auction": n_auction, "read": n_read, "auction_ms": ms}
 
 
 def localize_phase(seed: int, device, card: str, n: int = N_GAUSSIANS,
@@ -1367,7 +1430,7 @@ def localize_phase(seed: int, device, card: str, n: int = N_GAUSSIANS,
     from splatloc_tpu_torch.cli.config import save_dir_for
     from splatloc_tpu_torch.eval import metrics
     from splatloc_tpu_torch.fields import FeatureFieldConfig, init_decoder
-    from splatloc_tpu_torch.match.localize import PAIR_CFG, _level_cam_gt
+    from splatloc_tpu_torch.match.localize import _level_cam_gt
     from splatloc_tpu_torch.train.decoder_train import save_params
 
     t_phase = time.perf_counter()
@@ -1550,6 +1613,353 @@ def localize_extras(session, res: dict, card: str) -> None:
     res["superpoint_ms"] = ms
 
 
+# --------------------------------------------------------------------------
+# phase 12: the mapping CLI on phase 11's dataset
+# --------------------------------------------------------------------------
+
+MAP_REFINE_ITERS = 200  # of the CLI's 26,000 colour-refinement iterations
+# the keyframe whose map() block is traced: a steady one, past keyframe
+# 0's first use of the path and with no densify in its block
+MAP_TRACE_KF = 3
+# the JAX package's pair-vs-blend limits (tests/test_pallas.py:64-68),
+# set there on colour channels in [0, 1]: the keypoint-score channel, a
+# logit of a few units, is held to the same limit relative to its largest
+# magnitude (its float32 sums round in proportion to it)
+BLEND_PAIR_LIMITS = {"image": 5e-5, "kp_score": 5e-5, "depth": 2e-4,
+                     "alpha": 5e-5}
+# share of the learned map view's pixels allowed past those limits (a
+# Gaussian at a cut blended by one path only; see blend_vs_pair)
+BLEND_FLIP_SHARE = 1e-4
+# relative nudges of a cut (alpha_min, transmittance_eps) under which the
+# per-pixel oracle must reproduce each path at a pixel past the limits
+CUT_NUDGES = (1e-5, 1e-3)
+
+
+def trace_device_ms(trace_dir: Path) -> tuple[float, float, bool]:
+    """(summed device time in ms of the one trace in ``trace_dir``, the ms
+    from its first device event's start to its last one's end, whether it
+    names a fwd_pairwalk launch)."""
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace in {trace_dir}: {files}")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e.get("dur", 0) for e in events)
+    span = (max(e["ts"] + e.get("dur", 0) for e in events)
+            - min(e["ts"] for e in events)) if events else float("nan")
+    named = any("fwd_pairwalk" in str(e.get("name", "")) for e in events
+                if e.get("cat") == "kernel")
+    return busy / 1e3, span / 1e3, named
+
+
+def blend_diff_maps(a, b, kp_scale: float) -> dict:
+    """Per-pixel differences of two renders, each (image, depth, alpha) of
+    the same pixels: the RGB image, the keypoint-score channel over
+    ``kp_scale``, depth and alpha."""
+    return {"image": (a[0][..., :3] - b[0][..., :3]).abs().amax(-1),
+            "kp_score": (a[0][..., 3:] - b[0][..., 3:]).abs().amax(-1)
+            / kp_scale,
+            "depth": (a[1] - b[1]).abs(), "alpha": (a[2] - b[2]).abs()}
+
+
+def within_limits(d: dict) -> torch.Tensor:
+    """Per pixel: every difference of blend_diff_maps within
+    BLEND_PAIR_LIMITS."""
+    return torch.stack([d[k] <= lim for k, lim in
+                        BLEND_PAIR_LIMITS.items()]).all(0)
+
+
+def flip_witness(args, alive, cam, pix, sides: dict, kp_scale: float):
+    """At the pixels ``pix`` ([P, 2] (x, y)) where the tiled blend and the
+    pair kernels (``sides``: name -> (image, depth, alpha) at those pixels)
+    differ past the limits: the per-pixel oracle (rasterize_reference:
+    every Gaussian of the view in depth order, no tile lists) with the
+    exact cuts, and with alpha_min or transmittance_eps nudged by each of
+    CUT_NUDGES up and down; which of these reproduce each side within the
+    limits. A pixel that both sides reproduce under some nudge holds a
+    Gaussian at that cut, blended by one side's rounding only."""
+    from splatloc_tpu_torch.raster.reference import rasterize_reference
+    base = RasterConfig()
+    variants = {"exact": base}
+    for f in CUT_NUDGES:
+        for sgn, tag in ((1, "+"), (-1, "-")):
+            variants[f"alpha_min{tag}{f:g}"] = base.replace(
+                alpha_min=base.alpha_min * (1 + sgn * f))
+            variants[f"eps{tag}{f:g}"] = base.replace(
+                transmittance_eps=base.transmittance_eps * (1 + sgn * f))
+    per = [{"x": x, "y": y, **{f"{k}_alpha": float(v[2][i])
+                               for k, v in sides.items()},
+            **{f"{k}_matches": [] for k in sides}}
+           for i, (x, y) in enumerate(pix.tolist())]
+    with torch.no_grad():
+        for name, cfg in variants.items():
+            ref = rasterize_reference(*args, cam, cfg, alive=alive,
+                                      pixels=pix)[:3]
+            if name == "exact":
+                for i, r in enumerate(per):
+                    r["oracle_alpha"] = float(ref[2][i])
+                    r["oracle_depth"] = float(ref[1][i])
+            for k, v in sides.items():
+                ok = within_limits(blend_diff_maps(v, ref, kp_scale))
+                for i, r in enumerate(per):
+                    if bool(ok[i]):
+                        r[f"{k}_matches"].append(name)
+    return per
+
+
+def blend_vs_pair(scene, cam, pair_cfg: RasterConfig, seed: int) -> dict:
+    """rasterize with use_pallas=False (the tiled blend) against
+    use_pallas=True (the pair kernels, ``pair_cfg``), on the card, held to
+    BLEND_PAIR_LIMITS:
+
+    - on tests/test_pallas.py's scene (300 random Gaussians at 64x48 with
+      a background), every pixel, as the JAX package holds its two paths;
+    - on one 640x480 view of the learned map, all but BLEND_FLIP_SHARE of
+      the pixels. The paths round power and transmittance differently, so
+      a Gaussian right at the alpha_min or the transmittance cut can be
+      blended by one path only. At each pixel past the limits
+      flip_witness must reproduce both paths with the oracle under a
+      nudged cut, and the paths may differ by at most one Gaussian's
+      largest weight at a cut, w = max(alpha_min, alpha_max * eps /
+      (1 - alpha_max)): alpha by w, depth by w times the view's largest
+      depth, RGB by w times its largest colour, the keypoint score by w
+      relative.
+
+    The blend's per-tile cap is raised until no tile drops a Gaussian."""
+    from splatloc_tpu_torch.raster import rasterize
+    eps, amax = PAIR_CFG.transmittance_eps, PAIR_CFG.alpha_max
+    w_cut = max(PAIR_CFG.alpha_min, amax * eps / (1.0 - amax))
+
+    def parts(o):
+        return o.image, o.depth, o.alpha
+
+    # tests/test_pallas.py's scene and limits
+    rng = np.random.default_rng(seed)
+    n, W, H = 300, 64, 48
+    sc = [torch.from_numpy(x).to(cam.device) for x in (
+        np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n),
+                  rng.uniform(1, 5, n)], -1).astype(np.float32),
+        np.exp(rng.uniform(-4.5, -2.5, (n, 3))).astype(np.float32),
+        rng.normal(size=(n, 4)).astype(np.float32),
+        rng.uniform(0.2, 0.95, n).astype(np.float32),
+        rng.uniform(0, 1, (n, 4)).astype(np.float32))]
+    small = Camera.create(np.eye(4, dtype=np.float32), 50.0, 50.0, W / 2,
+                          H / 2, W, H, device=cam.device)
+    bg = torch.tensor([0.1, 0.2, 0.3, 0.0], device=cam.device)
+    cfg = RasterConfig(tile_size=16, max_per_tile=512, tile_chunk=4)
+    with torch.no_grad():
+        outs = [parts(rasterize(*sc, small, cfg.replace(use_pallas=p),
+                                bg=bg)) for p in (False, True)]
+    res = {"jax_test_scene": {k: float(v.max()) for k, v in blend_diff_maps(
+        *outs, max(1.0, float(outs[1][0][..., 3:].abs().max()))).items()}}
+
+    colors = torch.cat([sh.sh_to_color(scene.sh_degree, scene.features(),
+                                       scene.xyz, cam.camera_center),
+                        scene.kp_score], dim=-1)
+    args = (scene.xyz, scene.scaling_activated(), scene.rotation,
+            scene.opacity_activated(), colors)
+
+    def run(cfg):
+        with torch.no_grad():
+            return rasterize(*args, cam, cfg, alive=scene.alive)
+    cap = 1024
+    while True:
+        blend = run(RasterConfig(use_pallas=False, max_per_tile=cap))
+        if int(blend.n_dropped) == 0 or cap >= 16384:
+            break
+        cap *= 4
+    pair = run(pair_cfg)
+    kp_max = float(pair.image[..., 3:].abs().max())
+    kp_scale = max(1.0, kp_max)
+    d = blend_diff_maps(parts(blend), parts(pair), kp_scale)
+    beyond = ~within_limits(d)
+    res.update(map_view={k: float(v.max()) for k, v in d.items()},
+               map_view_pixels_beyond=int(beyond.sum()),
+               pixels=beyond.numel(), max_per_tile=cap,
+               blend_n_dropped=int(blend.n_dropped),
+               pair_n_dropped=int(pair.n_dropped))
+    # one Gaussian's largest weight at a cut, times the view's largest
+    # depth and colour (never below the limits the other pixels keep)
+    proj = project.project_gaussians(args[0], args[1], args[2], cam,
+                                     pair_cfg, alive=scene.alive)
+    vis = proj.visible
+    flip = {k: max(BLEND_PAIR_LIMITS[k], v) for k, v in (
+        ("image", w_cut * float(colors[vis, :3].abs().max())),
+        ("kp_score", w_cut * kp_max / kp_scale),
+        ("depth", w_cut * float(proj.depth[vis].max())),
+        ("alpha", w_cut))}
+    ys, xs = torch.nonzero(beyond, as_tuple=True)
+    pix = torch.stack([xs, ys], -1)[:int(BLEND_FLIP_SHARE * beyond.numel())
+                                    + 1]
+    res["flipped"] = flip_witness(
+        args, scene.alive, cam, pix,
+        {k: tuple(x[pix[:, 1], pix[:, 0]] for x in parts(o))
+         for k, o in (("blend", blend), ("pair", pair))}, kp_scale)
+    log("map: the tiled blend vs the pair kernels " + json.dumps(res)
+        + f" (limits {json.dumps(BLEND_PAIR_LIMITS)}; pixels beyond them "
+        f"at most {BLEND_FLIP_SHARE:g} of the map view's, each reproduced "
+        f"by the oracle under a nudged cut and within "
+        f"{json.dumps(flip)} there)")
+    bad = [k for k, lim in BLEND_PAIR_LIMITS.items()
+           if not res["jax_test_scene"][k] <= lim]
+    bad += [k for k, lim in flip.items() if not res["map_view"][k] <= lim]
+    if (bad or res["map_view_pixels_beyond"] > BLEND_FLIP_SHARE * res["pixels"]
+            or not all(r["blend_matches"] and r["pair_matches"]
+                       for r in res["flipped"])
+            or res["blend_n_dropped"] or res["pair_n_dropped"]):
+        raise AssertionError(f"blend and pair path differ: {bad} {res}")
+    return res
+
+
+def map_phase(tmp: str, seed: int, device, card: str,
+              capacity: int = TRAIN_CAPACITY,
+              refine_iters: int = MAP_REFINE_ITERS,
+              calib: dict | None = None,
+              trace_kf: int = MAP_TRACE_KF) -> dict:
+    """Phase 12: cli/train_gaussians.main on phase 11's dataset (room_0's
+    configuration, the loader's kept Sequence_1 frames as keyframes), with
+    every kernel's launch count set to 0 just before and read just after;
+    then EvalSession on the learned map (eval_rendering, eval_pose with
+    refinement), the three kernels against their plain versions on query
+    0's view of the learned map, and that view through the tiled blend and
+    the pair kernels."""
+    import yaml
+    from splatloc_tpu_torch.cli import train_gaussians
+    from splatloc_tpu_torch.cli.config import save_dir_for
+    from splatloc_tpu_torch.cli.test import EvalSession
+    from splatloc_tpu_torch.data import load_dataset
+
+    t_phase = time.perf_counter()
+    config = localize_config(tmp, calib)
+    config.pop("inherit_from", None)
+    cfg_path = Path(tmp) / "map.yaml"
+    cfg_path.write_text(yaml.dump(config))
+    trace_dir = Path(tmp) / "trace"
+    save_dir = Path(save_dir_for(config))
+    (save_dir / "metrics.jsonl").unlink(missing_ok=True)
+    argv = ["--config", str(cfg_path), "--refinement_iters",
+            str(refine_iters), "--trace_dir", str(trace_dir), "--trace_kf",
+            str(trace_kf), "--capacity", str(capacity), "--device",
+            str(device)]
+    log("map: python -m splatloc_tpu_torch.cli.train_gaussians "
+        + " ".join(argv))
+    synced(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    ply_path = train_gaussians.main(argv)
+    synced(device)
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    recs = [json.loads(x) for x in (save_dir / "metrics.jsonl").read_text(
+        ).splitlines() if x.strip()]
+    kf_recs = [r for r in recs if "kf" in r]
+    dataset = load_dataset(config, train=True)
+    tr = config["Training"]
+    iters, window = tr["mapping_itr_num"], tr["window_size"]
+    want = len(dataset) * iters * window + refine_iters
+    t0 = time.perf_counter()
+    for i in range(len(dataset)):
+        dataset.get_frame(i)
+    get_frame_s = time.perf_counter() - t0
+
+    def densify_in(r):
+        return any(i % tr["gaussian_update_every"]
+                   == tr["gaussian_update_offset"]
+                   for i in range(r["step"] - iters + 1, r["step"] + 1))
+    # the steady steps: past keyframe 0, no densify, not traced
+    steady = [1.0 / r["it_per_s"] for r in kf_recs[1:]
+              if not densify_in(r) and r["kf"] != trace_kf]
+    res = {"keyframes": len(kf_recs), "records": len(recs),
+           "wall_s": wall_s,
+           "step_s_steady_mean": float(np.mean(steady)) if steady else None,
+           "step_s_kf0": 1.0 / kf_recs[0]["it_per_s"],
+           "loss_per_kf": [r["loss"] for r in kf_recs],
+           "n_alive": recs[-1]["n_alive"],
+           "n_dropped_total": recs[-1]["n_dropped_total"],
+           "get_frame_s_all_kf": get_frame_s,
+           "launches": launches, "launches_expected": want}
+    log(f"map on {card}: " + json.dumps(res))
+
+    # gates on what the CLI wrote
+    if len(kf_recs) != len(dataset) or recs[-1].get("phase") != "refined" \
+            or len(recs) != len(dataset) + 1:
+        raise AssertionError(f"metrics.jsonl: {len(kf_recs)} keyframe "
+                             f"records of {len(dataset)}, then "
+                             f"{recs[-1]}")
+    losses = res["loss_per_kf"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"keyframe losses {losses}: not finite, or "
+                             f"the last not below the first")
+    if ply_path != str(save_dir / "point_cloud" / "final"
+                       / "point_cloud.ply") or not Path(ply_path).exists():
+        raise AssertionError(f"no map at {ply_path}")
+    again = Path(tmp) / "again.ply"
+    ply.save_scene(ply.load_scene(ply_path, device=device), str(again))
+    if again.read_bytes() != Path(ply_path).read_bytes():
+        raise AssertionError("load_scene + save_scene changed the map's "
+                             "bytes")
+
+    session = EvalSession(config, str(save_dir), refine_with_render_loss=True,
+                          device=device)
+    rendering = session.eval_rendering()
+    m_t, m_r = session.eval_pose()
+    res["eval_rendering"] = rendering
+    res["eval_pose_median_m_deg"] = [float(np.median(m_t)),
+                                     float(np.median(m_r))]
+    res["eval_pose_queries"] = len(m_t)
+    log(f"map: the learned map ({int(session.scene.num_alive)} Gaussians): "
+        f"eval_rendering {json.dumps(rendering)}, eval_pose median "
+        f"{res['eval_pose_median_m_deg'][0] * 100:.3f} cm "
+        f"{res['eval_pose_median_m_deg'][1]:.3f} deg over {len(m_t)} "
+        f"queries")
+
+    q0 = session.test_dataset.get_frame(0)
+    ds = session.test_dataset
+    cam = Camera.create(q0["w2c"], ds.fx, ds.fy, ds.cx, ds.cy, ds.width,
+                        ds.height, device=device)
+    pair_cfg = size_pair_array(session.scene, [cam], PAIR_CFG)
+    # the kernels against their plain versions on the learned map
+    with torch.no_grad():
+        walk_args, C, pr0 = walk_inputs(session.scene, cam, pair_cfg)
+        got = hopper_raster.fwd_pairwalk(*walk_args, C, pair_cfg)
+        ref = hopper_raster.fwd_pairwalk_plain(*walk_args, C, pair_cfg)
+        synced(device)
+        mf = compare_walk(got, ref, C)
+        _, _, _, errs = check_backward(walk_args, got, pr0, C, pair_cfg, seed,
+                                       ds.width, ds.height)
+    res["kernel_errs"] = {"fwd_pairwalk": mf["max_abs_err"], **errs}
+    log("map: kernels vs plain on query 0's view of the learned map "
+        + json.dumps({**res["kernel_errs"],
+                      "pairs": int(walk_args[2].sum())}))
+    res["blend_vs_pair"] = blend_vs_pair(session.scene, cam, pair_cfg, seed)
+
+    # the card's gates: every kernel ran on the mapping path, and the trace
+    # of a steady keyframe's block names the forward walk. Its idle share
+    # is taken against the untraced steady step's wall (the profiler slows
+    # the traced block's host) and, beside it, within the trace's own span
+    # of device activity
+    busy_ms, span_ms, named = trace_device_ms(trace_dir)
+    traced = [r for r in kf_recs if r["kf"] == trace_kf][0]
+    steady_ms = (res["step_s_steady_mean"] or float("nan")) * 1e3
+    res["trace"] = {"kf": trace_kf, "device_busy_ms": busy_ms,
+                    "device_busy_ms_per_step": busy_ms / iters,
+                    "traced_block_wall_ms": iters / traced["it_per_s"] * 1e3,
+                    "untraced_steady_step_ms": steady_ms,
+                    "idle_share": 1.0 - busy_ms / (iters * steady_ms),
+                    "device_span_ms": span_ms,
+                    "idle_share_in_span": 1.0 - busy_ms / span_ms,
+                    "names_fwd_pairwalk": named}
+    log(f"map: device trace of keyframe {trace_kf}'s map() block "
+        + json.dumps(res["trace"]))
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    if not named:
+        raise AssertionError("the trace names no fwd_pairwalk launch")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1663,27 +2073,38 @@ def main(argv=None) -> int:
     # just after (inside localize_phase)
     t11 = time.perf_counter()
     loc = localize_phase(args.seed, dev, card)
-    localize_extras(loc.pop("session"), loc, card)
-    shutil.rmtree(loc.pop("tmp"), ignore_errors=True)
-    log(f"localize: phase wall {time.perf_counter() - t11:.1f} s "
-        f"(the counted run and its checks {loc['phase_s']:.1f} s)")
+    tmp = loc.pop("tmp")
+    try:
+        localize_extras(loc.pop("session"), loc, card)
+        log(f"localize: phase wall {time.perf_counter() - t11:.1f} s "
+            f"(the counted run and its checks {loc['phase_s']:.1f} s)")
+
+        # 12. map: the mapping CLI on phase 11's dataset, counts set to 0
+        # just before, read just after (inside map_phase)
+        mapped = map_phase(tmp, args.seed, dev, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"map: phase wall {mapped['phase_s']:.1f} s; phase 11's medians "
+        f"beside it: PnP {loc['median_m_deg']['pnp']}, refined "
+        f"{loc['median_m_deg']['refined']} (m, deg)")
 
     paths = {"serve": launches, "train": train["launches"],
-             "localize": loc["launches"]}
+             "localize": loc["launches"], "map": mapped["launches"]}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),
                 "launches_by_path": {n: p.get(k, 0)
                                      for n, p in paths.items()}}
 
-    # the worst error against the plain version over phases 5, 8, 9 and 11
+    # the worst error against the plain version over phases 5, 8, 9, 11
+    # and 12
     m["max_abs_err"] = max(m["max_abs_err"],
-                           train["kernel_errs"]["fwd_pairwalk"],
-                           loc["kernel_errs"]["fwd_pairwalk"])
+                           *(p["kernel_errs"]["fwd_pairwalk"]
+                             for p in (train, loc, mapped)))
     for k in ("bwd_pairwalk", "seg_reduce"):
         bwd[k]["max_abs_err"] = max(bwd[k]["max_abs_err"],
-                                    train["kernel_errs"][k],
-                                    loc["kernel_errs"][k])
+                                    *(p["kernel_errs"][k]
+                                      for p in (train, loc, mapped)))
     # the reduction on the train path's own view, beside serve view 0's
     bwd["seg_reduce"]["train_view"] = train["kernel_errs"][
         "seg_reduce_timing"]

@@ -1,8 +1,9 @@
 """Evaluation entry point (reference test.py): --eval_pose, --eval_rendering,
 --eval_selection [--landmark_num N], on one CUDA device.
 
-Port of ``splatloc_tpu.cli.test``. Renders take the pair path
-(``RasterConfig(use_pallas=True)``): the hand-written kernels on the card.
+Port of ``splatloc_tpu.cli.test``. Renders pick the raster path by device,
+as the JAX package picks it by backend: the pair kernels on the card, the
+tiled blend on the CPU.
 
 Usage: python -m splatloc_tpu_torch.cli.test --config <yaml> --eval_pose ...
 """
@@ -76,8 +77,7 @@ class EvalSession:
         # reference hardcodes ransac_thresh=12 px at fx~320-572 (test.py:64);
         # configurable for other focal lengths
         self.inlier_px = config.get("Eval", {}).get("pnp_inlier_px", 12.0)
-        # the pair path always: the tiled blend is not ported
-        self.raster_cfg = RasterConfig(use_pallas=True)
+        self.raster_cfg = RasterConfig.for_device(device)
 
     def make_localizer(self, subset_xyz=None,
                        save_match: bool = False) -> Localizer:
@@ -89,7 +89,8 @@ class EvalSession:
                          subset_xyz=subset_xyz,
                          refine_with_render_loss=self.refine,
                          inlier_px=self.inlier_px,
-                         save_match_dir=match_dir, device=self.device)
+                         save_match_dir=match_dir,
+                         raster_cfg=self.raster_cfg, device=self.device)
 
     # -- eval_pose (test.py:463-517) -----------------------------------
 

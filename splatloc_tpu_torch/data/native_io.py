@@ -1,10 +1,11 @@
 """ctypes bindings for the native IO runtime (native/splatloc_io.cpp).
 
-The PNG readers of ``splatloc_tpu.data.native_io``, copied (the port
-imports nothing of the JAX package): the dataset loaders are their only
-caller yet; the PLY reader and the frame prefetcher come with the mapping
-CLI. ``native/`` is a C library of the repository, not a module of
-the JAX package, so the port loads the same ``libsplatloc_io.so``. It is
+The PNG readers and the PLY reader and writer of
+``splatloc_tpu.data.native_io``, copied (the port imports nothing of the JAX
+package): the dataset loaders and ``scene/ply.py`` call them; the frame
+prefetcher is not ported. ``native/`` is a C library of the repository, not
+a module of the JAX package, so the port loads the same
+``libsplatloc_io.so``. It is
 built on first use if missing (g++ with libpng); every entry point has a
 pure-Python fallback, so the port works without the native layer — it is
 the fast path, not a dependency.
@@ -50,6 +51,15 @@ def _load():
                                          ctypes.c_int, ctypes.c_int]
         lib.sl_png_read_u16.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
                                         ctypes.c_int, ctypes.c_int]
+        lib.sl_ply_read_header.restype = ctypes.c_longlong
+        lib.sl_ply_read_header.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        lib.sl_ply_read_f32.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                                        ctypes.c_void_p, ctypes.c_longlong]
+        lib.sl_ply_write_f32.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                         ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_longlong]
         _lib = lib
         return _lib
 
@@ -74,3 +84,33 @@ def png_read_depth16(path: str, width: int, height: int) -> np.ndarray | None:
     out = np.empty((height, width), np.uint16)
     rc = lib.sl_png_read_u16(path.encode(), out.ctypes.data, width, height)
     return out if rc == 0 else None
+
+
+def ply_read_f32(path: str):
+    """-> (names list, data [N, P] float32) or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_props = ctypes.c_int()
+    offset = ctypes.c_longlong()
+    buf = ctypes.create_string_buffer(8192)
+    n = lib.sl_ply_read_header(path.encode(), ctypes.byref(n_props), buf,
+                               len(buf), ctypes.byref(offset))
+    if n < 0:
+        return None
+    names = buf.value.decode().strip().split("\n")
+    data = np.empty((n, n_props.value), np.float32)
+    rc = lib.sl_ply_read_f32(path.encode(), offset.value, data.ctypes.data,
+                             n * n_props.value)
+    return (names, data) if rc == 0 else None
+
+
+def ply_write_f32(path: str, names: list[str], data: np.ndarray) -> bool:
+    lib = _load()
+    if lib is None:
+        return False
+    data = np.ascontiguousarray(data, np.float32)
+    names_nl = ("\n".join(names) + "\n").encode()
+    rc = lib.sl_ply_write_f32(path.encode(), names_nl, len(names),
+                              data.ctypes.data, data.shape[0])
+    return rc == 0

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from splatloc_tpu_torch.core import transforms
+from splatloc_tpu_torch.core.precision import full_float32
 from splatloc_tpu_torch.train.losses import ssim  # noqa: F401 (re-export)
 
 
@@ -59,9 +60,9 @@ _SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 _SCALE = np.array([0.458, 0.448, 0.450], np.float32)
 
 
+@full_float32()
 def _alex_features(params: dict, x: torch.Tensor):
     """x [N,3,H,W] in [-1,1] -> list of 5 feature maps [N,C,h,w]."""
-    torch.backends.cudnn.allow_tf32 = False
     feats = []
     h = x
     for i in range(5):

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from splatloc_tpu_torch.core.precision import full_float32
+
 
 def _saliency_chunk(points, w2cs, K, depths, width: int, height: int):
     """One chunk of views: returns per-point accumulators.
@@ -60,12 +62,12 @@ def _sym3_eigvals(H: np.ndarray):
     return np.linalg.eigvalsh(H)
 
 
+@full_float32()
 def saliency_scores(points: np.ndarray, w2cs: np.ndarray, K: np.ndarray,
                     depths: np.ndarray, view_chunk: int = 16,
                     device="cuda") -> np.ndarray:
     """Per-point saliency = depth-consistency + angular span
     (utils/selection.py:66-81,42-64,108-113)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     N = points.shape[0]
     V = w2cs.shape[0]
     H_img, W_img = depths.shape[1:]

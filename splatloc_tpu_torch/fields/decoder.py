@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from splatloc_tpu_torch.core.precision import full_float32
 from splatloc_tpu_torch.fields import hashgrid
 
 
@@ -71,10 +72,10 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+@full_float32()
 def decode(params: dict, pos: torch.Tensor,
            cfg: FeatureFieldConfig) -> torch.Tensor:
     """pos [B,3] world -> [B, final_dim] L2-normalized descriptors."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     gcfg = cfg.grid_config
     lo = torch.tensor([b[0] for b in cfg.bound], dtype=torch.float32,
                       device=pos.device)

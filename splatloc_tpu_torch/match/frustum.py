@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from splatloc_tpu_torch.core.precision import full_float32
+
 
 def project_points_K(pts: torch.Tensor, w2c: torch.Tensor, K: torch.Tensor,
                      width: int, height: int, near: float = 0.05):
@@ -32,11 +34,11 @@ def project_points_K(pts: torch.Tensor, w2c: torch.Tensor, K: torch.Tensor,
     return torch.stack([u, v], -1), inside
 
 
+@full_float32()
 def nearest_neighbor(queries: torch.Tensor, points: torch.Tensor,
                      points_valid: torch.Tensor, block: int = 1024):
     """For each query [M,3], the nearest point among the valid ones of
     [N,3]. Returns (dist [M], index [M])."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     sq_p = torch.sum(points * points, -1)
     big = torch.where(points_valid, 0.0, float("inf"))
     dists, idxs = [], []

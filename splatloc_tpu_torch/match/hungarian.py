@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from splatloc_tpu_torch.core.precision import full_float32
+
 NEG = -1e9
 
 
@@ -31,14 +33,12 @@ def _auction_round(sim, prices, owner_of_col, col_of_row, eps: float):
     """One bidding round -> (prices, owner_of_col, col_of_row)."""
     R, C = sim.shape
     dev = sim.device
-    rows = torch.arange(R, device=dev)
     cols = torch.arange(C, device=dev)
     unassigned = col_of_row < 0                           # [R]
     value = sim - prices[None, :]                         # [R, C]
     best_val, best_col = torch.max(value, dim=1)          # first maximum
-    value2 = value.clone()
-    value2[rows, best_col] = NEG
-    second_val = torch.max(value2, dim=1).values
+    second_val = torch.max(value.scatter(1, best_col[:, None], NEG),
+                           dim=1).values
     bid = best_val - second_val + eps                     # [R]
 
     # each column takes its highest bidder among unassigned rows
@@ -49,14 +49,21 @@ def _auction_round(sim, prices, owner_of_col, col_of_row, eps: float):
     won = top_bid > NEG / 2
 
     prices = torch.where(won, prices + top_bid, prices)
+    # every write of the round is a scatter, never an index assignment: on
+    # the card a mask index copies a count to the host, and an index
+    # assignment of a scalar synchronizes too (torch.cuda.
+    # set_sync_debug_mode shows both). Columns with no owner to evict, or
+    # no winner, write to a spare slot R that is dropped, as the JAX
+    # package's mode="drop" does.
     # evict previous owners of columns just won
-    evicted = torch.where(won, owner_of_col, -1)
-    is_evicted = torch.zeros((R + 1,), dtype=torch.bool, device=dev)
-    is_evicted[evicted] = True                            # -1 -> slot R
+    evicted = torch.where(won & (owner_of_col >= 0), owner_of_col, R)
+    is_evicted = torch.zeros((R + 1,), dtype=torch.bool, device=dev).scatter(
+        0, evicted.long(), True)
     col_of_row = torch.where(is_evicted[:R], -1, col_of_row)
     # assign winners (a row bids one column, so no write conflicts)
-    col_of_row = col_of_row.clone()
-    col_of_row[top_row[won]] = cols[won].to(col_of_row.dtype)
+    slot = torch.where(won, top_row, R)
+    col_of_row = torch.cat([col_of_row, col_of_row.new_full((1,), -1)])
+    col_of_row = col_of_row.scatter(0, slot, cols.to(col_of_row.dtype))[:R]
     owner_of_col = torch.where(won, top_row.to(owner_of_col.dtype),
                                owner_of_col)
     return prices, owner_of_col, col_of_row
@@ -87,10 +94,10 @@ def auction_assignment(sim: torch.Tensor, eps: float = 1e-3,
     return col_of_row
 
 
+@full_float32()
 def _sim_matrix(d1, d2, thresh: float):
     """L2-normalize along D, cosine similarity, zero below threshold
     (utils/match_utils.py:5-16)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     d1 = d1 / torch.clamp(torch.linalg.norm(d1, dim=0, keepdim=True),
                           min=1e-12)
     d2 = d2 / torch.clamp(torch.linalg.norm(d2, dim=0, keepdim=True),

@@ -8,11 +8,12 @@ KD-snap to db keypoints -> descriptor field decode -> Hungarian matching ->
 PnP+RANSAC -> optional render-loss 6-DoF pose refinement through the
 rasterizer's pose gradients.
 
-Refinement always takes the pair path (``RasterConfig(use_pallas=True)``):
-its hand-written kernels on CUDA tensors, their plain versions on CPU
-tensors. The JAX package's one compiled ``lax.while_loop`` per pyramid
-level becomes a Python loop here, and each iteration reads its stop test on
-the host: ``refine_pose`` counts those reads (``info["syncs"]``).
+Refinement picks the raster path by device, as the JAX package picks it by
+backend (localize.py:323): the pair kernels on the card, the tiled blend on
+the CPU, unless the caller passes a ``RasterConfig``. The JAX package's one
+compiled ``lax.while_loop`` per pyramid level becomes a Python loop here,
+and each iteration reads its stop test on the host: ``refine_pose`` counts
+every host sync it makes (``info["syncs"]``).
 """
 from __future__ import annotations
 
@@ -28,9 +29,6 @@ from splatloc_tpu_torch.fields import FeatureFieldConfig, decode
 from splatloc_tpu_torch.match import frustum, hungarian, pnp
 from splatloc_tpu_torch.raster import render
 from splatloc_tpu_torch.raster.types import RasterConfig
-
-# the pair path: the hand-written kernels on the card
-PAIR_CFG = RasterConfig(use_pallas=True)
 
 
 def load_retrieval_table(path: str) -> dict:
@@ -98,7 +96,8 @@ class Localizer:
                  subset_xyz: np.ndarray | None = None,
                  refine_with_render_loss: bool = False,
                  inlier_px: float = 12.0,
-                 save_match_dir: str | None = None, device="cuda"):
+                 save_match_dir: str | None = None,
+                 raster_cfg: RasterConfig | None = None, device="cuda"):
         self.scene = scene
         self.decoder_params = decoder_params
         self.field_cfg = field_cfg
@@ -112,6 +111,7 @@ class Localizer:
         self.refine_with_render_loss = refine_with_render_loss
         self.inlier_px = inlier_px
         self.save_match_dir = save_match_dir
+        self.raster_cfg = raster_cfg
         self.device = device
         # host copies of the map
         alive = scene.alive.cpu().numpy()
@@ -237,7 +237,7 @@ class Localizer:
         gt = torch.as_tensor(np.asarray(query_frame["rgb"], np.float32),
                              device=self.device)
         xi, info = refine_pose(self.scene, cam0, w2c0, gt, iters=iters,
-                               lr=lr, rtol=rtol)
+                               lr=lr, rtol=rtol, raster_cfg=self.raster_cfg)
         w2c = (transforms.se3_exp(xi) @ w2c0).cpu().numpy()
         c2w = np.linalg.inv(w2c)
         return {**match_ret, "r": c2w[:3, :3], "t": c2w[:3, 3],
@@ -253,14 +253,14 @@ def _l1(scene, camera: Camera, w2c, gt, cfg: RasterConfig):
 
 
 def _pose_loss(scene, camera: Camera, w2c, gt,
-               cfg: RasterConfig = PAIR_CFG) -> torch.Tensor:
+               cfg: RasterConfig) -> torch.Tensor:
     """Render loss of one pose (the JAX package's ``_pose_loss_jit``)."""
     with torch.no_grad():
         return _l1(scene, camera, w2c, gt, cfg)
 
 
 def _seed_losses(scene, camera: Camera, xis, w2c0, gt,
-                 cfg: RasterConfig = PAIR_CFG) -> torch.Tensor:
+                 cfg: RasterConfig) -> torch.Tensor:
     """Render loss of every seed pose ``xis`` [S,6] (se3 perturbations of
     ``w2c0``) -> [S] on the device (``_seed_losses_jit``)."""
     with torch.no_grad():
@@ -269,7 +269,7 @@ def _seed_losses(scene, camera: Camera, xis, w2c0, gt,
 
 
 def _refine_level(scene, camera: Camera, w2c0, gt, iters: int, lr: float,
-                  rtol: float, patience: int, cfg: RasterConfig = PAIR_CFG):
+                  rtol: float, patience: int, cfg: RasterConfig):
     """One pyramid level (``_refine_pose_jit``): Adam on the se3 update of
     ``w2c0`` with best-so-far tracking, stopping after ``patience``
     iterations in a row without a ``rtol`` relative improvement or at
@@ -278,14 +278,16 @@ def _refine_level(scene, camera: Camera, w2c0, gt, iters: int, lr: float,
     dev = w2c0.device
     b1, b2, eps = 0.9, 0.999, 1e-8
     f32 = dict(dtype=torch.float32, device=dev)
+    # constants are filled on the device: torch.tensor(x, device=...)
+    # copies from the host and waits for the stream
     z = torch.zeros(6, **f32)
     xi, m, v, bxi = z, z, z, z
-    loss0 = torch.tensor(float("inf"), **f32)
+    loss0 = torch.full((), float("inf"), **f32)
     # best starts LARGE-FINITE, not inf: inf - rtol*inf is nan and would
     # make the improvement test unconditionally false
-    best = torch.tensor(1e30, **f32)
-    stall = torch.tensor(0.0, **f32)
-    b1t, b2t = torch.tensor(b1, **f32), torch.tensor(b2, **f32)
+    best = torch.full((), 1e30, **f32)
+    stall = torch.zeros((), **f32)
+    b1t, b2t = torch.full((), b1, **f32), torch.full((), b2, **f32)
     i, syncs = 0, 0
     while i < iters:
         syncs += 1
@@ -330,10 +332,15 @@ def _level_cam_gt(camera: Camera, gt, s: int):
 def refine_pose(scene, camera: Camera, w2c0, gt, iters: int = 64,
                 lr: float = 2e-3, rtol: float = 1e-4, patience: int = 8,
                 levels: tuple[int, ...] = (8, 4, 2, 1),
-                multi_start_deg: tuple[float, ...] = (7.0, 14.0)):
+                multi_start_deg: tuple[float, ...] = (7.0, 14.0),
+                raster_cfg: RasterConfig | None = None):
     """Render-loss 6-DoF pose refinement: returns (xi [6] se3 update in the
     w2c frame, info dict with iters/loss0/loss/seed_evals, the per-level
-    records ``levels`` and the host reads of stop tests ``syncs``).
+    records ``levels`` and the host syncs ``syncs``: one read per iteration
+    (the stop test, and the one that stops a level on patience), one for
+    the seed losses, one for every level's losses together and one for the
+    guard, and one upload for each of ``gt`` and ``w2c0`` passed as a host
+    array or on another device).
 
     Coarse-to-fine: each entry of ``levels`` is a downscale factor — the
     scene is re-rendered at camera/s resolution against an s x s
@@ -346,57 +353,72 @@ def refine_pose(scene, camera: Camera, w2c0, gt, iters: int = 64,
     the camera x/y axes) are scored by render loss at the coarsest level,
     and the pyramid starts from the best seed (the identity seed is always
     included). A full-resolution acceptance guard keeps the start pose when
-    the refined one scores worse."""
+    the refined one scores worse. ``raster_cfg`` None renders through the
+    pair kernels on the card and the tiled blend on the CPU."""
     dev = camera.device
+    cfg = raster_cfg if raster_cfg is not None else RasterConfig.for_device(
+        dev)
+    # a host array's upload waits for the stream: counted as a sync
+    syncs = sum(not (torch.is_tensor(x) and x.device == dev)
+                for x in (gt, w2c0))
     gt = torch.as_tensor(gt, dtype=torch.float32, device=dev)
     w2c0 = torch.as_tensor(w2c0, dtype=torch.float32, device=dev)
     w2c = w2c0
     H, W = camera.height, camera.width
     total_iters, loss0 = 0.0, None
-    records, syncs = [], 0
+    records = []
     lvls = [s for s in levels if s == 1 or
             (W % s == 0 and H % s == 0 and min(W, H) // s >= 16)]
     degs = [d for d in multi_start_deg if d > 0]
     seed_evals = 0
     if degs and lvls:
         cam_c, gt_c = _level_cam_gt(camera, gt, lvls[0])
-        seeds = np.zeros((1 + 8 * len(degs), 6), np.float32)
-        for j, d in enumerate(degs):
-            th = float(np.radians(d))
-            for k in range(8):   # 8 compass directions in the (x, y) plane
-                a = np.pi * k / 4.0
-                seeds[1 + 8 * j + k, 3:5] = (th * np.cos(a),
-                                             th * np.sin(a))
-        seeds_t = torch.as_tensor(seeds, device=dev)
-        losses = _seed_losses(scene, cam_c, seeds_t, w2c0,
-                              gt_c).cpu().numpy()
+        # 8 compass directions in the (x, y) plane per angle, made on the
+        # device (in float64, as numpy would) so no upload waits
+        f64 = dict(dtype=torch.float64, device=dev)
+        a = (torch.arange(8, **f64) * (np.pi / 4.0)).repeat(len(degs))
+        th = torch.cat([torch.full((8,), float(np.radians(d)), **f64)
+                        for d in degs])
+        seeds_t = torch.zeros((1 + 8 * len(degs), 6), dtype=torch.float32,
+                              device=dev)
+        seeds_t[1:, 3] = (th * torch.cos(a)).float()
+        seeds_t[1:, 4] = (th * torch.sin(a)).float()
+        losses = _seed_losses(scene, cam_c, seeds_t, w2c0, gt_c,
+                              cfg).cpu().numpy()
         syncs += 1
         best = int(np.argmin(losses))
         if best != 0:
             w2c = transforms.se3_exp(seeds_t[best]) @ w2c0
-        seed_evals = seeds.shape[0]
+        seed_evals = seeds_t.shape[0]
+    level_losses = []
     for s in lvls:
         cam_s, gt_s = _level_cam_gt(camera, gt, s)
         xi, info = _refine_level(scene, cam_s, w2c, gt_s, iters, lr, rtol,
-                                 patience)
+                                 patience, cfg)
         w2c = transforms.se3_exp(xi) @ w2c
         total_iters += info["iters"]
         syncs += info["syncs"]
-        records.append({"scale": s, "iters": int(info["iters"]),
-                        "loss0": float(info["loss0"]),
-                        "loss": float(info["loss"])})
+        records.append({"scale": s, "iters": int(info["iters"])})
+        level_losses.append(torch.stack([info["loss0"], info["loss"]]))
         if loss0 is None:
             loss0 = info["loss0"]
+    if level_losses:
+        # every level's (loss0, loss) in one host read
+        for rec, (l0, l1) in zip(records, torch.stack(
+                level_losses).cpu().tolist()):
+            rec.update(loss0=l0, loss=l1)
+        syncs += 1
     # full-resolution acceptance guard: coarse levels optimize a slightly
     # different objective (downscale render vs pooled target) and can drift
     # when the start pose is already near-perfect — refinement must never
     # return a pose that scores worse than the start at full resolution
-    l_ref = _pose_loss(scene, camera, w2c, gt)
-    l_start = _pose_loss(scene, camera, w2c0, gt)
+    l_ref = _pose_loss(scene, camera, w2c, gt, cfg)
+    l_start = _pose_loss(scene, camera, w2c0, gt, cfg)
+    start_ref = torch.stack([l_start, l_ref]).cpu()
     syncs += 1
     common = {"iters": total_iters, "seed_evals": seed_evals,
               "levels": records, "syncs": syncs}
-    if float(l_start) <= float(l_ref):
+    if start_ref[0] <= start_ref[1]:
         return torch.zeros(6, device=dev), {**common, "loss0": l_start,
                                             "loss": l_start,
                                             "guard_kept_start": True}

@@ -24,6 +24,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from splatloc_tpu_torch.core import transforms
+from splatloc_tpu_torch.core.precision import full_float32
 
 
 def _dlt_pose(pts2d_n: torch.Tensor, pts3d: torch.Tensor):
@@ -107,12 +108,12 @@ def _gauss_newton_refine(R, t, pts2d_n, pts3d, weights, iters: int = 10):
     return Rt @ R, (Rt @ t[..., None])[..., 0] + T[:, :3, 3]
 
 
+@full_float32()
 def _solve_core(pts2d_n, pts3d, valid, priorities, inlier_thresh_n: float,
                 sample_size: int, refine_iters: int):
     """RANSAC over ``priorities`` [n_hypotheses, M] (one uniform draw per
     hypothesis and point: each hypothesis samples its ``sample_size``
     highest-priority valid points). Returns (R, t, inliers [M], count)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     pri = priorities + torch.where(valid, 0.0, -10.0)
     idx = torch.topk(pri, sample_size, dim=1).indices        # [B, S]
     R, t, ok = _dlt_pose(pts2d_n[idx], pts3d[idx])

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from splatloc_tpu_torch.core.precision import full_float32
+
 # (name, out_channels) of the shared encoder, pools after conv1b/2b/3b
 _ENCODER = [("conv1a", 64), ("conv1b", 64), ("conv2a", 64), ("conv2b", 64),
             ("conv3a", 128), ("conv3b", 128), ("conv4a", 128),
@@ -51,10 +53,10 @@ def _conv(x, w, b, pad=None):
     return F.conv2d(x, w, b, padding=w.shape[-1] // 2 if pad is None else pad)
 
 
+@full_float32()
 def dense_outputs(params: dict, image_gray: torch.Tensor):
     """image_gray [H,W] in [0,1] (H, W multiples of 8) ->
     (scores [H,W], descriptors_coarse [H/8, W/8, D])."""
-    torch.backends.cudnn.allow_tf32 = False
     x = image_gray[None, None]
     for name, _ in _ENCODER:
         x = torch.relu(_conv(x, params[f"{name}_w"], params[f"{name}_b"]))

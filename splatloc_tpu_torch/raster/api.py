@@ -4,8 +4,10 @@ Port of ``splatloc_tpu.raster.api``: ``rasterize`` is the functional core;
 ``render`` mirrors the reference's render() dict contract on a
 GaussianScene. The pair path (``cfg.use_pallas=True``) runs the
 hand-written pair-walk kernels on CUDA tensors and their plain versions on
-CPU tensors. Gradients flow through the projection and the blend (the
-backward walk and the per-Gaussian reduction).
+CPU tensors; ``use_pallas=False`` (the default, as in the JAX package)
+takes the tiled blend (``raster/blend.py``) on either device. Gradients
+flow through the projection and the blend (the pair path: the backward
+walk and the per-Gaussian reduction; the tiled blend: autograd).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from splatloc_tpu_torch.core import sh as sh_mod
 from splatloc_tpu_torch.core.camera import Camera
-from splatloc_tpu_torch.raster import binning, hopper_raster, project
+from splatloc_tpu_torch.raster import binning, blend, hopper_raster, project
 from splatloc_tpu_torch.raster.types import RasterConfig, RenderOutput
 
 
@@ -37,10 +39,6 @@ def rasterize(
     C = colors.shape[-1]
     if bg is None:
         bg = torch.zeros((C,), dtype=torch.float32, device=colors.device)
-    if not cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False selects the tiled blend (raster/blend.py), "
-            "not ported yet: ROADMAP queue A, later items")
 
     proj = project.project_gaussians(means3d, scales, quats, camera, cfg,
                                      alive=alive,
@@ -52,14 +50,24 @@ def rasterize(
 
     order = binning.depth_sort(proj)
 
-    acc, n_dropped, n_trunc, n_vis_dropped = hopper_raster.blend_pairs(
-        (proj.u, proj.v), (proj.conic_a, proj.conic_b, proj.conic_c),
-        opacities, proj.depth, colors,
-        (proj.radius_x.detach(), proj.radius_y.detach()),
-        proj.visible.to(torch.float32), order,
-        camera.width, camera.height, cfg)
-    image, depth, alpha = hopper_raster.assemble_image(
-        acc, camera.width, camera.height, cfg, bg)
+    if cfg.use_pallas:
+        acc, n_dropped, n_trunc, n_vis_dropped = hopper_raster.blend_pairs(
+            (proj.u, proj.v), (proj.conic_a, proj.conic_b, proj.conic_c),
+            opacities, proj.depth, colors,
+            (proj.radius_x.detach(), proj.radius_y.detach()),
+            proj.visible.to(torch.float32), order,
+            camera.width, camera.height, cfg)
+        image, depth, alpha = hopper_raster.assemble_image(
+            acc, camera.width, camera.height, cfg, bg)
+    else:
+        lists, _counts, n_dropped = binning.tile_lists(
+            proj, order, camera.width, camera.height, cfg)
+        n_trunc = torch.zeros((), dtype=torch.int32, device=colors.device)
+        n_vis_dropped = torch.zeros_like(n_trunc)
+        image, depth, alpha = blend.blend_image(
+            lists, proj.xy[order], proj.conic[order], opacities[order],
+            colors[order], proj.depth[order], camera.width, camera.height,
+            cfg, bg)
 
     return RenderOutput(image=image, depth=depth, alpha=alpha,
                         radii=proj.radius.to(torch.int32), means2d=proj.xy,

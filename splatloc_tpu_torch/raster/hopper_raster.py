@@ -92,9 +92,13 @@ def _origins(width, height, ts):
 
 @functools.lru_cache(maxsize=64)
 def _origins_on(width, height, ts, device) -> torch.Tensor:
-    """The [2T] int32 tile origins on ``device``, copied there once: a copy
-    from the host on every render would wait for the stream."""
-    return torch.from_numpy(_origins(width, height, ts)[1]).to(device)
+    """The [2T] int32 tile origins of ``_origins``, made on ``device`` once:
+    a copy from the host waits for the stream."""
+    gx = -(-width // ts)
+    tile_ids = torch.arange(gx * -(-height // ts), dtype=torch.int32,
+                            device=device)
+    return torch.stack([(tile_ids % gx) * ts, (tile_ids // gx) * ts],
+                       -1).reshape(-1)
 
 
 def _build_per_g(xy, conic, opacity, depth, colors, order,

@@ -17,7 +17,7 @@ class RasterConfig:
     for the meaning of each field). Frozen and hashable."""
     tile_size: int = 16
     max_per_tile: int = 1024
-    # Tiles processed per step of the XLA tiled blend (not ported yet).
+    # Tiles processed per step of the tiled blend (a memory knob).
     tile_chunk: int = 64
     near: float = 0.2
     alpha_max: float = 0.99
@@ -39,6 +39,13 @@ class RasterConfig:
 
     def replace(self, **changes) -> "RasterConfig":
         return dataclasses.replace(self, **changes)
+
+    @classmethod
+    def for_device(cls, device) -> "RasterConfig":
+        """The JAX package's rule (``use_pallas = default_backend() !=
+        "cpu"``) on a torch device: the pair kernels on the card, the tiled
+        blend on the CPU."""
+        return cls(use_pallas=torch.device(device).type != "cpu")
 
 
 @dataclasses.dataclass(frozen=True)

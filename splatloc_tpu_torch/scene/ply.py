@@ -1,8 +1,10 @@
 """PLY import/export, byte-compatible with the reference map format.
 
-Port of ``splatloc_tpu.scene.ply`` (its pure-numpy codec): binary little
-endian PLY with float vertex attributes
-x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,scale_*,rot_*,marker,kp_score.
+Port of ``splatloc_tpu.scene.ply``: binary little endian PLY with float
+vertex attributes
+x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,scale_*,rot_*,marker,kp_score. The
+native IO library (``data/native_io.py``) reads and writes float PLYs where
+it loads; the pure-numpy codec does the rest and writes the same bytes.
 """
 from __future__ import annotations
 
@@ -24,6 +26,11 @@ _PLY_DTYPES = {
 
 def read_ply_vertices(path: str) -> dict:
     """Parse the vertex element of a PLY file -> {prop_name: np.array}."""
+    from splatloc_tpu_torch.data import native_io
+    nat = native_io.ply_read_f32(path) if native_io.available() else None
+    if nat is not None:
+        names, data = nat
+        return {n: data[:, i] for i, n in enumerate(names)}
     with open(path, "rb") as f:
         data = f.read()
     header_end = data.index(b"end_header\n") + len(b"end_header\n")
@@ -69,6 +76,10 @@ def write_ply(path: str, names: list[str], columns: np.ndarray):
     """Write binary_little_endian PLY with float32 vertex properties.
     columns: [N, len(names)]."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    from splatloc_tpu_torch.data import native_io
+    if native_io.available() and native_io.ply_write_f32(
+            path, names, np.asarray(columns, np.float32)):
+        return
     n = columns.shape[0]
     buf = io.BytesIO()
     buf.write(b"ply\nformat binary_little_endian 1.0\n")

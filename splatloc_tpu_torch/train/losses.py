@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from splatloc_tpu_torch.core.precision import full_float32
+
 
 def mapping_loss(image, depth, gt_image, gt_depth, exposure_a, exposure_b,
                  rgb_boundary_threshold: float = 0.01) -> torch.Tensor:
@@ -61,21 +63,41 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5,
     return torch.outer(g, g)
 
 
+class _WindowFilter(torch.autograd.Function):
+    """Depthwise 'same' convolution of NCHW ``x`` with a fixed odd window
+    [C, 1, k, k], forward and backward both in full float32 (the backward
+    runs after the forward's block has closed, so it scopes its own)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(kernel)
+        with full_float32():
+            return F.conv2d(x, kernel, padding=kernel.shape[-1] // 2,
+                            groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (kernel,) = ctx.saved_tensors
+        with full_float32():
+            gx = F.conv_transpose2d(grad, kernel,
+                                    padding=kernel.shape[-1] // 2,
+                                    groups=grad.shape[1])
+        return gx, None
+
+
 def ssim(img1, img2, window_size: int = 11) -> torch.Tensor:
     """Mean SSIM over [H,W,C] images: the standard 11x11 sigma=1.5 gaussian
     window formulation of the reference (loss_utils.py:25-69). The filter
-    is a depthwise float32 convolution; cuDNN's TF32 is switched off, as the
-    reference forces full precision (sigma^2 = E[x^2] - mu^2 cancels on
-    low-variance windows)."""
-    torch.backends.cudnn.allow_tf32 = False
+    is a depthwise float32 convolution with cuDNN's TF32 off in both
+    passes, as the reference forces full precision (sigma^2 = E[x^2] - mu^2
+    cancels on low-variance windows)."""
     C = img1.shape[-1]
     w = _gaussian_window(window_size, device=img1.device)
     kernel = w[None, None].expand(C, 1, window_size, window_size)
 
     def filt(x):
         x = x.permute(2, 0, 1)[None]                       # NCHW
-        y = F.conv2d(x, kernel, padding=window_size // 2, groups=C)
-        return y[0].permute(1, 2, 0)
+        return _WindowFilter.apply(x, kernel)[0].permute(1, 2, 0)
 
     mu1, mu2 = filt(img1), filt(img2)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

@@ -112,9 +112,8 @@ class MappingConfig:
     kp_score_lr: float = 0.05
     scaling_lr: float = 0.001
     rotation_lr: float = 0.001
-    # rasterizer; the port has only the pair path, so use_pallas is kept
-    # for the schema and raster_config() selects the pair path whatever it
-    # says
+    # rasterizer; use_pallas None = by device (the pair kernels on the
+    # card, the tiled blend on the CPU)
     tile_size: int = 16
     max_per_tile: int = 1024
     tile_chunk: int = 32
@@ -140,11 +139,15 @@ class MappingConfig:
     point_size: float = 0.05
     adaptive_pointsize: bool = True
 
-    def raster_config(self) -> RasterConfig:
+    def raster_config(self, device="cuda") -> RasterConfig:
+        """The rasterizer's configuration for a trainer on ``device``."""
+        use_pallas = self.use_pallas
+        if use_pallas is None:
+            use_pallas = RasterConfig.for_device(device).use_pallas
         return RasterConfig(tile_size=self.tile_size,
                             max_per_tile=self.max_per_tile,
                             tile_chunk=self.tile_chunk,
-                            use_pallas=True,
+                            use_pallas=use_pallas,
                             max_tiles=self.max_tiles,
                             pair_cap_factor=self.pair_cap_factor,
                             pair_cap_override=self.pair_cap_override,
@@ -216,7 +219,7 @@ def _render_view(scene: GaussianScene, frame: dict, offset, cfg,
     colors = torch.cat([rgb, scene.kp_score], dim=-1)
     return rasterize(scene.xyz, scene.scaling_activated(), scene.rotation,
                      scene.opacity_activated(), colors, cam,
-                     cfg.raster_config(), alive=scene.alive,
+                     cfg.raster_config(scene.xyz.device), alive=scene.alive,
                      means2d_offset=offset)
 
 
@@ -596,7 +599,7 @@ class MappingTrainer:
                                      min(5, self.frames.n), dtype=int)
                 sample = np.unique(np.concatenate([recent, spread]))
         need = self._probe_pair_need(sample)
-        rcfg = self.cfg.raster_config()
+        rcfg = self.cfg.raster_config(self.device)
         n_ranks = (rcfg.visible_cap if rcfg.visible_cap is not None
                    else self.scene.capacity)
         cur = pairs.aligned_cap(rcfg, n_ranks, self.cfg.width,
@@ -618,7 +621,7 @@ class MappingTrainer:
     def _probe_pair_need(self, frame_indices) -> int:
         """Exact aligned pair-array need (pairs.pair_need) of the current
         scene over the given keyframes, under the current raster config."""
-        rcfg = self.cfg.raster_config()
+        rcfg = self.cfg.raster_config(self.device)
         need = 0
         for i in frame_indices:
             cam = self.camera.replace_pose(self.frames.w2c[int(i)])
@@ -642,7 +645,7 @@ class MappingTrainer:
                                     min(max_probe_frames, self.frames.n),
                                     dtype=int))
         need = self._probe_pair_need(idx)
-        rcfg = self.cfg.raster_config()
+        rcfg = self.cfg.raster_config(self.device)
         n_ranks = (rcfg.visible_cap if rcfg.visible_cap is not None
                    else self.scene.capacity)
         cur = pairs.aligned_cap(rcfg, n_ranks, self.cfg.width,

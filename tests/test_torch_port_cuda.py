@@ -14,6 +14,7 @@ from splatloc_tpu_torch.core.camera import Camera
 from splatloc_tpu_torch.raster import binning, hopper_raster, project
 from splatloc_tpu_torch.raster import RasterConfig, rasterize, render
 from splatloc_tpu_torch.scene.gaussians import GaussianScene
+from splatloc_tpu_torch.utils.profiling import count_syncs
 
 pytestmark = pytest.mark.cuda
 
@@ -578,7 +579,7 @@ def test_refine_level_on_card_matches_cpu(cuda):
                   hopper_raster.bwd_pairwalk.launches,
                   hopper_raster.seg_reduce.launches)
         xi, info = localize._refine_level(sc, cam, w2c0, gt, 8, 2e-3, 1e-4,
-                                          8)
+                                          8, RasterConfig(use_pallas=True))
         after = (hopper_raster.fwd_pairwalk.launches,
                  hopper_raster.bwd_pairwalk.launches,
                  hopper_raster.seg_reduce.launches)
@@ -592,3 +593,87 @@ def test_refine_level_on_card_matches_cpu(cuda):
                                rtol=1e-5)
     np.testing.assert_allclose(float(ig["loss"]), float(ic["loss"]),
                                rtol=1e-3)
+
+
+def test_auction_round_does_not_sync(cuda, monkeypatch):
+    """An auction round issues no host sync (no mask index); the whole
+    auction reads the unassigned count once per block of 20 rounds."""
+    from splatloc_tpu_torch.match import hungarian
+    rng = np.random.default_rng(5)
+    d2 = rng.normal(size=(64, 300)).astype(np.float32)
+    d1 = d2[:, rng.permutation(300)[:200]] + 0.4 * rng.normal(
+        size=(64, 200)).astype(np.float32)
+    sim = hungarian._sim_matrix(torch.from_numpy(d1).to(cuda),
+                                torch.from_numpy(d2).to(cuda), 0.4)
+    R, C = sim.shape
+    state = (torch.zeros((C,), device=cuda),
+             torch.full((C,), -1, dtype=torch.int32, device=cuda),
+             torch.full((R,), -1, dtype=torch.int32, device=cuda))
+    _, n = count_syncs(lambda: hungarian._auction_round(sim, *state, 1e-4))
+    assert n == 0
+    rounds = []
+    one_round = hungarian._auction_round
+    monkeypatch.setattr(hungarian, "_auction_round",
+                        lambda *a: rounds.append(1) or one_round(*a))
+    got, n = count_syncs(lambda: hungarian.auction_assignment(sim,
+                                                              eps=1e-4))
+    assert n == -(-len(rounds) // 20)
+    assert bool((got >= 0).all())
+
+
+def test_refine_pose_counts_its_syncs(cuda):
+    """refine_pose's info["syncs"] is every host sync it makes."""
+    from splatloc_tpu_torch.core import transforms
+    from splatloc_tpu_torch.match import localize
+    means, scales, quats, opac, colors = make_scene(12, dense=True)
+    n = means.shape[0]
+    sc = GaussianScene(
+        xyz=means.to(cuda), f_dc=((colors[:, None, :3] - 0.5)
+                                  / 0.28209479177387814).to(cuda),
+        f_rest=torch.zeros((n, 0, 3), device=cuda),
+        scaling=torch.log(scales).to(cuda), rotation=quats.to(cuda),
+        opacity=torch.logit(opac)[:, None].to(cuda),
+        marker=torch.zeros((n, 1), device=cuda),
+        kp_score=colors[:, 3:].to(cuda),
+        alive=torch.ones((n,), dtype=torch.bool, device=cuda))
+    cam = Camera.create(np.eye(4, dtype=np.float32), 50.0, 50.0, W / 2,
+                        H / 2, W, H, device=cuda)
+    with torch.no_grad():
+        gt = render(sc, cam, RasterConfig(use_pallas=True))["render"]
+    w2c0 = transforms.se3_exp(torch.tensor(
+        [0.02, -0.01, 0.01, 0.01, -0.01, 0.005], device=cuda))
+    torch.cuda.synchronize()
+    (xi, info), n_sync = count_syncs(lambda: localize.refine_pose(
+        sc, cam, w2c0, gt, iters=6, levels=(2, 1)))
+    assert info["syncs"] == n_sync
+
+
+def test_tiled_blend_on_card_matches_pair_path(cuda):
+    """rasterize with use_pallas=False (the tiled blend) on the card against
+    the pair kernels, to the JAX package's pair-vs-blend limits; the blend
+    launches no pair kernel."""
+    sc = [x.to(cuda) for x in make_scene(13)]
+    cam = Camera.create(np.eye(4, dtype=np.float32), 50.0, 50.0, W / 2,
+                        H / 2, W, H, device=cuda)
+    before = hopper_raster.fwd_pairwalk.launches
+    blend = rasterize(*sc, cam, RasterConfig(use_pallas=False))
+    assert hopper_raster.fwd_pairwalk.launches == before
+    pair = rasterize(*sc, cam, RasterConfig(use_pallas=True))
+    assert float((blend.image - pair.image).abs().max()) <= 5e-5
+    assert float((blend.depth - pair.depth).abs().max()) <= 2e-4
+    assert float((blend.alpha - pair.alpha).abs().max()) <= 5e-5
+
+
+def test_trace_on_card_names_the_kernels(cuda, tmp_path):
+    """utils.profiling.trace on the card writes a trace that names the
+    forward walk's launches."""
+    from splatloc_tpu_torch.utils.profiling import trace
+    sc = [x.to(cuda) for x in make_scene(14)]
+    cam = Camera.create(np.eye(4, dtype=np.float32), 50.0, 50.0, W / 2,
+                        H / 2, W, H, device=cuda)
+    rasterize(*sc, cam, RasterConfig(use_pallas=True))
+    with trace(str(tmp_path), cuda):
+        rasterize(*sc, cam, RasterConfig(use_pallas=True))
+    files = list(tmp_path.glob("*.json"))
+    assert len(files) == 1
+    assert "fwd_pairwalk" in files[0].read_text()

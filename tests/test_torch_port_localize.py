@@ -1,10 +1,10 @@
 """Port parity for localization (match.localize's refinement pieces and
 Localizer, cli.test's EvalSession) against the JAX package on the same
-numpy inputs. The JAX refinement pieces run the Pallas path in interpret
-mode (``use_pallas=True``); the JAX ``refine_pose`` and ``EvalSession``
-take the tiled blend on the CPU (localize.py:323, cli/test.py:71), the
-port the pair path's plain versions, so those two are held to pose
-tolerances."""
+numpy inputs. The refinement pieces run the pair path on both sides (the
+JAX Pallas path in interpret mode, the port's plain versions: both passed
+``use_pallas=True``); the JAX ``refine_pose`` takes the tiled blend on the
+CPU (localize.py:323), and the port's is given the pair path, so those two
+are held to pose tolerances."""
 import os
 import re
 
@@ -30,6 +30,7 @@ from splatloc_tpu_torch.cli.config import save_dir_for
 from splatloc_tpu_torch.core import transforms as tt
 from splatloc_tpu_torch.core.camera import Camera as TCamera
 from splatloc_tpu_torch.match import localize as tloc
+from splatloc_tpu_torch.raster.types import RasterConfig as TRasterConfig
 from splatloc_tpu_torch.scene import ply as tply
 from splatloc_tpu_torch.scene.gaussians import GaussianScene as TScene
 
@@ -37,6 +38,8 @@ torch.set_num_threads(1)
 
 W, H = 64, 48
 FX, CX, CY = 50.0, 31.5, 23.5
+# the port's pair path on the CPU (the kernels' plain versions)
+PAIR = TRasterConfig(use_pallas=True)
 
 
 def _jax_scene(seed=0, n=220, cap=256):
@@ -106,7 +109,7 @@ def test_refine_level_matches_jax(pair, case):
                                    patience, True)
     xt, it = tloc._refine_level(ts, tcam, torch.from_numpy(w2c0),
                                 torch.from_numpy(gt), iters, 2e-3, 1e-4,
-                                patience)
+                                patience, PAIR)
     assert it["iters"] == float(ij["iters"])
     assert it["iters"] == (iters if case == "to_cap" else patience + 1)
     np.testing.assert_allclose(float(it["loss0"]), float(ij["loss0"]),
@@ -135,10 +138,10 @@ def test_seed_losses_match_jax(pair):
     lj = np.asarray(jloc._seed_losses_jit(js, jc, jnp.asarray(xis),
                                           jnp.asarray(w2c0), jg, True))
     lt = tloc._seed_losses(ts, tc, torch.from_numpy(xis),
-                           torch.from_numpy(w2c0), tg).numpy()
+                           torch.from_numpy(w2c0), tg, PAIR).numpy()
     assert lt.shape == (5,)
     np.testing.assert_allclose(lt, lj, rtol=1e-6, atol=2e-7)
-    lp = float(tloc._pose_loss(ts, tc, torch.from_numpy(w2c0), tg))
+    lp = float(tloc._pose_loss(ts, tc, torch.from_numpy(w2c0), tg, PAIR))
     np.testing.assert_allclose(lp, float(jloc._pose_loss_jit(
         js, jc, jnp.asarray(w2c0), jg, True)), rtol=1e-6, atol=2e-7)
 
@@ -168,7 +171,8 @@ def test_refine_pose_matches_jax(pair):
     js, ts, jcam, tcam, gt = pair
     w2c0 = _w2c([0.03, -0.02, 0.02, 0.02, -0.03, 0.01])
     xj, ij = jloc.refine_pose(js, jcam, w2c0, gt, iters=30)
-    xt, it = tloc.refine_pose(ts, tcam, w2c0, torch.from_numpy(gt), iters=30)
+    xt, it = tloc.refine_pose(ts, tcam, w2c0, torch.from_numpy(gt), iters=30,
+                              raster_cfg=PAIR)
     pj = _w2c(np.asarray(xj)) @ w2c0
     pt = tt.se3_exp(xt).numpy() @ w2c0
     d, a = _pose_err(pt, pj)
@@ -189,13 +193,13 @@ def test_refine_pose_guard_keeps_a_perfect_start(pair):
     _, ts, _, tcam, gt = pair
     xt, it = tloc.refine_pose(ts, tcam, np.eye(4, dtype=np.float32),
                               torch.from_numpy(gt), iters=4,
-                              multi_start_deg=())
+                              multi_start_deg=(), raster_cfg=PAIR)
     if it["guard_kept_start"]:
         assert float(xt.abs().max()) == 0.0
         assert float(it["loss"]) == float(it["loss0"])
     else:
         assert float(it["loss"]) < float(tloc._pose_loss(
-            ts, tcam, torch.eye(4), torch.from_numpy(gt)))
+            ts, tcam, torch.eye(4), torch.from_numpy(gt), PAIR))
 
 
 # --------------------------------------------------------------------------

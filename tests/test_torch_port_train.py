@@ -491,13 +491,15 @@ def _synthetic_frames(rng, cfg, n_frames=3):
     return frames
 
 
+# the pair path on the CPU (its kernels' plain versions) in both packages:
+# use_pallas=None would pick the tiled blend there
 SMALL = dict(width=32, height=24, fx=25.0, fy=25.0, cx=16.0, cy=12.0,
              window_size=2, tile_chunk=2, max_per_tile=128, kp_budget=32,
              nonkp_budget=256, pcd_downsample=2, gaussian_reset=10 ** 9,
-             gaussian_update_every=10 ** 9)
+             gaussian_update_every=10 ** 9, use_pallas=True)
 LADDER = dict(width=48, height=36, fx=40.0, fy=40.0, cx=24.0, cy=18.0,
               window_size=2, tile_chunk=3, max_per_tile=256, kp_budget=64,
-              nonkp_budget=512, pcd_downsample=2)
+              nonkp_budget=512, pcd_downsample=2, use_pallas=True)
 
 
 def _jax_state(jt) -> dict:
@@ -521,7 +523,7 @@ def _jax_state(jt) -> dict:
 def small_pair():
     """A JAX trainer (Pallas path, interpret mode) with two keyframes and a
     port trainer carrying the same state."""
-    jcfg = jmapping.MappingConfig(use_pallas=True, **SMALL)
+    jcfg = jmapping.MappingConfig(**SMALL)
     jt = jmapping.MappingTrainer(jcfg, capacity=1024, frame_capacity=4,
                                  seed=3)
     for f in _synthetic_frames(np.random.default_rng(5), jcfg, 2):
@@ -660,7 +662,7 @@ def test_checkpoint_resume(tmp_path):
 def ladder_pair():
     """JAX and port trainers on test_train.py's 48x36 configuration, with
     the same three keyframes; the port carries the JAX trainer's state."""
-    jcfg = jmapping.MappingConfig(use_pallas=True, max_per_tile=4096,
+    jcfg = jmapping.MappingConfig(max_per_tile=4096,
                                   **{k: v for k, v in LADDER.items()
                                      if k != "max_per_tile"})
     jt = jmapping.MappingTrainer(jcfg, capacity=4096, frame_capacity=8)
@@ -715,8 +717,8 @@ def test_tighten_pair_cap_probe(ladder_pair):
     jt0, _ = ladder_pair
     cfg_kw = dict(LADDER, pair_cap_factor=12)
     t = _port_from(jt0, cfg_kw)
-    jt = jmapping.MappingTrainer(jmapping.MappingConfig(
-        use_pallas=True, **cfg_kw), capacity=4096, frame_capacity=8)
+    jt = jmapping.MappingTrainer(jmapping.MappingConfig(**cfg_kw),
+                                 capacity=4096, frame_capacity=8)
     jt.scene, jt.frames = jt0.scene, jt0.frames
     jt.cfg = dataclasses.replace(jt.cfg, visible_cap=jt0.cfg.visible_cap)
     assert t.tighten_pair_cap() and jt.tighten_pair_cap()
@@ -739,8 +741,8 @@ def test_growth_ladder_pair_cap(ladder_pair):
     jt0, _ = ladder_pair
     cfg_kw = dict(LADDER, max_per_tile=4096)
     t = _port_from(jt0, cfg_kw)
-    jt = jmapping.MappingTrainer(jmapping.MappingConfig(
-        use_pallas=True, **cfg_kw), capacity=4096, frame_capacity=8)
+    jt = jmapping.MappingTrainer(jmapping.MappingConfig(**cfg_kw),
+                                 capacity=4096, frame_capacity=8)
     jt.scene, jt.frames = jt0.scene, jt0.frames
     jt.cfg = dataclasses.replace(jt.cfg, visible_cap=jt0.cfg.visible_cap)
     t.iteration = jt.iteration = 1000
