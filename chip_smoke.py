@@ -1,17 +1,18 @@
 """Drive the PyTorch/CUDA port (``splatloc_tpu_torch``) on one NVIDIA GPU.
 
 The quickest proof that the port starts on the card. It drives the port's
-three main paths through the entry points a user calls: serving the
+main paths through the entry points a user calls: serving the
 forward render of a Gaussian map (``raster.render``) at the size of the JAX
 package's bench scene, 100,000 Gaussians with C = 4 channels (RGB plus
 kp_score), SH degree 0, seen through the Replica calibration (640x480,
 configs/replica/base_config.yaml); the mapping trainer
 (``train.mapping.MappingTrainer``) on that configuration, at its full width
-and its CLI's capacity of 2^19 Gaussians; and localization of query images
+and its CLI's capacity of 2^19 Gaussians; localization of query images
 through ``cli/test.py``'s ``EvalSession`` (descriptor field, 2D-3D
-matching, PnP and render-loss pose refinement); and the mapping CLI
+matching, PnP and render-loss pose refinement); the mapping CLI
 (``cli/train_gaussians.py``) from a dataset on disk to a saved map that
-``EvalSession`` localizes from. Phases:
+``EvalSession`` localizes from; and the offline protocol from RGB-D frames
+to a replay through every CLI. Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
              and ``nvidia-smi``'s name and power limit
@@ -87,6 +88,27 @@ matching, PnP and render-loss pose refinement); and the mapping CLI
              the tiled blend (``use_pallas=False``) against the pair
              kernels on tests/test_pallas.py's scene and on that view,
              with the per-pixel oracle at any pixel past the limits
+13. protocol the offline protocol on phase 11's frames through every
+             CLI's ``main``, with the launch counts set to 0 just before
+             and read just after: random SuperPoint and NetVLAD (64
+             clusters, 4096-d whitening) weights from ``--seed``;
+             ``preprocess`` extract-features, gen-retrieval and gen-fusion
+             (``--voxel_size 0.02``) into a fresh generated folder;
+             ``train_gaussians`` with phase 12's cut; ``train_decoder`` at
+             room_0's full decoder width for 10 of the CLI's 41 epochs;
+             ``test
+             --eval_pose --eval_rendering --eval_selection --save_pose
+             --save_match``; ``replay``. Every artifact must exist and
+             parse, the medians be finite, PSNR above 10 dB and the
+             decoder's loss fall; each stage on one input against the CPU
+             path (NetVLAD, the retrieval table, one frame's TSDF volume,
+             fused features, one decoder step's gradients); the three
+             kernels against their plain versions on the learned map; a
+             decoder step's wall, syncs and device profile, and encode's
+             forward and backward in its one-gather form against the
+             per-level form; two decoder runs bit for bit; and a decoder
+             fit: trained on the fused points labelled by phase 11's
+             decoder, it localizes phase 11's queries
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -1811,6 +1833,23 @@ def blend_vs_pair(scene, cam, pair_cfg: RasterConfig, seed: int) -> dict:
     return res
 
 
+def kernels_vs_plain(scene, cam, seed: int):
+    """The three kernels against their plain versions on one view of
+    ``scene`` (the pair array sized for it) -> (the worst absolute error of
+    each, the raster config, the view's pairs)."""
+    pair_cfg = size_pair_array(scene, [cam], PAIR_CFG)
+    with torch.no_grad():
+        walk_args, C, pr0 = walk_inputs(scene, cam, pair_cfg)
+        got = hopper_raster.fwd_pairwalk(*walk_args, C, pair_cfg)
+        ref = hopper_raster.fwd_pairwalk_plain(*walk_args, C, pair_cfg)
+        synced(cam.w2c.device)
+        mf = compare_walk(got, ref, C)
+        _, _, _, errs = check_backward(walk_args, got, pr0, C, pair_cfg, seed,
+                                       cam.width, cam.height)
+    return ({"fwd_pairwalk": mf["max_abs_err"], **errs}, pair_cfg,
+            int(walk_args[2].sum()))
+
+
 def map_phase(tmp: str, seed: int, device, card: str,
               capacity: int = TRAIN_CAPACITY,
               refine_iters: int = MAP_REFINE_ITERS,
@@ -1918,20 +1957,11 @@ def map_phase(tmp: str, seed: int, device, card: str,
     ds = session.test_dataset
     cam = Camera.create(q0["w2c"], ds.fx, ds.fy, ds.cx, ds.cy, ds.width,
                         ds.height, device=device)
-    pair_cfg = size_pair_array(session.scene, [cam], PAIR_CFG)
     # the kernels against their plain versions on the learned map
-    with torch.no_grad():
-        walk_args, C, pr0 = walk_inputs(session.scene, cam, pair_cfg)
-        got = hopper_raster.fwd_pairwalk(*walk_args, C, pair_cfg)
-        ref = hopper_raster.fwd_pairwalk_plain(*walk_args, C, pair_cfg)
-        synced(device)
-        mf = compare_walk(got, ref, C)
-        _, _, _, errs = check_backward(walk_args, got, pr0, C, pair_cfg, seed,
-                                       ds.width, ds.height)
-    res["kernel_errs"] = {"fwd_pairwalk": mf["max_abs_err"], **errs}
+    res["kernel_errs"], pair_cfg, n_pairs = kernels_vs_plain(
+        session.scene, cam, seed)
     log("map: kernels vs plain on query 0's view of the learned map "
-        + json.dumps({**res["kernel_errs"],
-                      "pairs": int(walk_args[2].sum())}))
+        + json.dumps({**res["kernel_errs"], "pairs": n_pairs}))
     res["blend_vs_pair"] = blend_vs_pair(session.scene, cam, pair_cfg, seed)
 
     # the card's gates: every kernel ran on the mapping path, and the trace
@@ -1960,10 +1990,523 @@ def map_phase(tmp: str, seed: int, device, card: str,
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 13: the offline protocol, from frames to a replay
+# --------------------------------------------------------------------------
+
+PROTO_VOXEL = 0.02       # preprocess gen-fusion --voxel_size
+# train_decoder's epochs, cut from the CLI's 41: at a host-bound 4.7-10.2
+# ms a step (597 steps an epoch) 41 epochs took 136-246 s and phase 13
+# 315-495 s; the logged loss is flat from epoch 10 (0.0008 -> 0.0006)
+PROTO_EPOCHS = 10
+FIT_EPOCHS = 10          # the decoder fit (a measurement beside the path)
+NETVLAD_SHAPE = dict(n_clusters=64, whiten_dim=4096)
+# the card against the port's CPU path on one input of each stage:
+# NetVLAD's 13 convolutions and whitening sum in another order; the tsdf
+# of one frame moves by float32 ulps where the products round apart (and a
+# voxel on a pixel boundary may flip: at most TSDF_FLIP_SHARE of them,
+# each within FLIP_PX of the boundary in float64); fused features average
+# the same rows; one decoder step's gradients pass bf16-rounded cotangents
+# (an isolated one-bf16-ulp flip where float32 sums straddle a rounding
+# boundary)
+PROTO_CPU_LIMITS = {"netvlad": 1e-5, "tsdf": 1e-5, "fused": 1e-5,
+                    "grad_rel_l2": 1e-3}
+TSDF_FLIP_SHARE = 1e-4
+FUSE_FLIP_SHARE = 1e-3
+FLIP_PX = 1e-3
+
+
+def hwio_npz(path: Path, params: dict) -> None:
+    """Port params (OIHW convs) saved in the JAX package's npz layout."""
+    np.savez(path, **{k: (v.permute(2, 3, 1, 0) if v.ndim == 4 else v)
+                      .cpu().numpy() for k, v in params.items()})
+
+
+def write_random_weights(tmp: str, seed: int, device) -> tuple[str, str]:
+    """Random SuperPoint (256-d) and NetVLAD (64 clusters, 4096-d
+    whitening, made on the card) weights from ``seed``, as npz files in the
+    JAX layout. The NetVLAD centers are scaled to unit norm, as k-means
+    centroids of L2-normalized descriptors are: at the init's N(0, 1) scale
+    the center term swamps the residuals and every image gets the same
+    descriptor to 1e-6."""
+    from splatloc_tpu_torch.match import netvlad, superpoint
+    sp = superpoint.init_params(torch.Generator(device).manual_seed(seed),
+                                device=device)
+    nv = netvlad.init_params(torch.Generator(device).manual_seed(seed + 1),
+                             **NETVLAD_SHAPE, device=device)
+    c = nv["vlad_centers"]
+    nv["vlad_centers"] = c / c.norm(dim=1, keepdim=True)
+    paths = (Path(tmp) / "superpoint.npz", Path(tmp) / "netvlad.npz")
+    hwio_npz(paths[0], sp)
+    hwio_npz(paths[1], nv)
+    return str(paths[0]), str(paths[1])
+
+
+def protocol_config(tmp: str, calib: dict | None) -> tuple[dict, Path]:
+    """Phase 11's configuration with a fresh generated folder and results
+    directory, written as the YAML the CLIs read."""
+    import yaml
+    config = localize_config(tmp, calib)
+    config.pop("inherit_from", None)
+    config["Dataset"]["generated_folder"] = str(Path(tmp) / "proto_gen")
+    config["Results"]["save_dir"] = str(Path(tmp) / "proto_results")
+    path = Path(tmp) / "protocol.yaml"
+    path.write_text(yaml.dump(config))
+    return config, path
+
+
+def pose_report(path: Path) -> list[float]:
+    """The four medians (retrieval t, r; match t, r) of a pose report."""
+    import re
+    flat = [float(x) for pair in re.findall(
+        r"Trans\.\(cm\): ([-\d.e+naif]+)\. Rotation\(deg\): ([-\d.e+naif]+)\.",
+        path.read_text()) for x in pair]
+    if len(flat) != 4:
+        raise AssertionError(f"{path} does not parse: {path.read_text()}")
+    return flat
+
+
+def run_stage(name: str, fn, stages: dict, device):
+    """Run one CLI stage, its wall time into ``stages``; returns its
+    result and what it printed (also echoed to the log)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    synced(device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    synced(device)
+    stages[name] = time.perf_counter() - t0
+    printed = buf.getvalue()
+    for line in printed.splitlines()[-12:]:
+        log(f"  {name}: {line}")
+    return out, printed
+
+
+def flipped_on_boundary(vol, frame, K, flipped) -> bool:
+    """Each flipped voxel projects, in float64, within FLIP_PX of a pixel
+    boundary (x.5) in x or y, where a float32 rounding may take either
+    side."""
+    idx = np.argwhere(flipped).astype(np.float64)
+    world = idx * vol.voxel_size + vol.origin.cpu().numpy().astype(
+        np.float64)
+    w2c = np.linalg.inv(frame["c2w"].astype(np.float64))
+    cam = world @ w2c[:3, :3].T + w2c[:3, 3]
+    px = cam[:, 0] * K[0, 0] / cam[:, 2] + K[0, 2]
+    py = cam[:, 1] * K[1, 1] / cam[:, 2] + K[1, 2]
+    frac = np.minimum(np.abs(px - np.floor(px) - 0.5),
+                      np.abs(py - np.floor(py) - 0.5))
+    return bool((frac < FLIP_PX).all())
+
+
+def rel_l2_np(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    return float(np.linalg.norm(a - np.asarray(b, np.float64))
+                 / max(np.linalg.norm(a), 1e-30))
+
+
+def protocol_cpu_check(config, nv_path: str, sp_path: str, xyz, seed: int,
+                       device) -> dict:
+    """Each stage on one input, the card against the port's CPU path:
+    NetVLAD's descriptor of one image and the whole retrieval table
+    (identical), the TSDF volume after one frame, the fused features of
+    4,096 points of the cloud over the kept frames (the same descriptor
+    maps on both), and one decoder step's gradients."""
+    from splatloc_tpu_torch.data import load_dataset
+    from splatloc_tpu_torch.fields import FeatureFieldConfig, fusion, \
+        init_decoder
+    from splatloc_tpu_torch.match import netvlad, superpoint
+    from splatloc_tpu_torch.train import decoder_train
+
+    res = {}
+    train = load_dataset(config, train=True)
+    test = load_dataset(config, train=False)
+    train.load_score_flag = test.load_score_flag = False
+    nv = {d: netvlad.load_params(nv_path, d) for d in (device, "cpu")}
+
+    def table(d):
+        def descs(ds):
+            return torch.stack([netvlad.global_descriptor(
+                nv[d], torch.as_tensor(ds.load_image(i), device=d))
+                for i in range(len(ds))])
+        db, q = descs(train), descs(test)
+        idx, _ = netvlad.top_k_retrieval(q, db, k=min(10, len(train)))
+        return db, idx.cpu().numpy()
+    t0 = time.perf_counter()
+    db_card, idx_card = table(device)
+    db_cpu, idx_cpu = table("cpu")
+    res["netvlad"] = float((db_card.cpu() - db_cpu).abs().max())
+    res["retrieval_same"] = bool((idx_card == idx_cpu).all())
+    res["netvlad_cpu_s"] = time.perf_counter() - t0
+    written = (Path(train.generated_folder) / "netvlad_retrieval.txt"
+               ).read_text().splitlines()
+    res["retrieval_file_same"] = written == [
+        test.index_to_name(i) + " " + " ".join(
+            train.index_to_name(j) for j in idx_cpu[i])
+        for i in range(len(test))]
+    del nv, db_card
+
+    frame = train.get_frame(0)
+    bound = np.asarray(config["scene"]["bound"], np.float32)
+    vols = [fusion.integrate_frame(
+        fusion.TSDFVolume.create(bound, PROTO_VOXEL, device=d),
+        frame["depth"], frame["rgb"], train.K, frame["c2w"])
+        for d in (device, "cpu")]
+    g, c = vols
+    flipped = ((g.weight.cpu() != c.weight)
+               | (g.color.cpu() != c.color).any(-1)).numpy()
+    res["voxels"] = int(flipped.size)
+    res["tsdf_flips"] = int(flipped.sum())
+    res["tsdf_flips_on_boundary"] = (not flipped.any()) or \
+        flipped_on_boundary(c, frame, train.K, flipped)
+    diff = (g.tsdf.cpu() - c.tsdf).abs().numpy()
+    res["tsdf"] = float(diff[~flipped].max())
+    del vols, g, c
+
+    sp = superpoint.load_params(sp_path, device)
+    pick = np.random.default_rng(seed + 14).choice(len(xyz), 4096,
+                                                    replace=False)
+    maps = []
+    for i in range(len(train)):
+        f = train.get_frame(i)
+        gray = torch.as_tensor((0.299 * f["rgb"][..., 0]
+                                + 0.587 * f["rgb"][..., 1]
+                                + 0.114 * f["rgb"][..., 2]
+                                ).astype(np.float32), device=device)
+        _, coarse = superpoint.dense_outputs(sp, gray)
+        dense = coarse.repeat_interleave(8, 0).repeat_interleave(8, 1)
+        maps.append((dense, f["depth"], f["c2w"]))
+    fg, wg = fusion.fuse_point_features(xyz[pick], maps, train.K, 256,
+                                        device=device)
+    fc, wc = fusion.fuse_point_features(
+        xyz[pick], [(m.cpu(), d, c2w) for m, d, c2w in maps], train.K, 256,
+        device="cpu")
+    same = wg == wc
+    res["fused_points"] = int(len(pick))
+    res["fused_weight_flips"] = int((~same).sum())
+    res["fused"] = float(np.abs(fg[same] - fc[same]).max())
+    del maps
+
+    cfg = FeatureFieldConfig.from_config(config)
+    params = init_decoder(cfg, torch.Generator(device).manual_seed(seed),
+                          device=device)
+    x = torch.as_tensor(xyz[pick[:256]], device=device)
+    f = torch.as_tensor(fc[:256], device=device)
+    grads = {}
+    for d in (device, "cpu"):
+        p = {"table": params["table"].to(d).clone().requires_grad_(),
+             "layers": [w.to(d).clone().requires_grad_()
+                        for w in params["layers"]]}
+        opt = decoder_train.make_optimizer(p)
+        decoder_train.train_step(p, opt, x.to(d), f.to(d), cfg)
+        grads[d] = [t.grad.cpu().numpy() for t in [p["table"],
+                                                    *p["layers"]]]
+    res["grad_rel_l2"] = max(rel_l2_np(a, b) for a, b in
+                             zip(grads["cpu"], grads[device]))
+    return res
+
+
+def decoder_step_report(cfg, xyz, feats, seed: int, device) -> dict:
+    """One decoder training step at the configuration's width and batch
+    256: its wall time (50 steps, synchronised), its host syncs, a device
+    profile (ops, busy time, idle share), and hash-grid encode's forward
+    and backward in the repaired one-gather form against the per-level
+    form it replaced (device ops and busy ms per call)."""
+    from splatloc_tpu_torch.fields import hashgrid, init_decoder
+    from splatloc_tpu_torch.train import decoder_train
+    params = init_decoder(cfg, torch.Generator(device).manual_seed(seed + 1),
+                          device=device)
+    for t in [params["table"], *params["layers"]]:
+        t.requires_grad_(True)
+    opt = decoder_train.make_optimizer(params)
+    idx = torch.as_tensor(np.random.default_rng(seed).permutation(
+        len(xyz))[:256], device=device)
+    x = torch.as_tensor(xyz, device=device)[idx]
+    f = torch.as_tensor(feats, device=device)[idx]
+
+    def step():
+        return decoder_train.train_step(params, opt, x, f, cfg)
+    for _ in range(3):
+        step()
+    synced(device)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        step()
+    synced(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 50
+    _, syncs = count_syncs(step)
+    res = {"step_wall_ms": wall_ms, "step_syncs": syncs,
+           "step_profile": profile(step, wall_ms, 5, warm=True)}
+    g = cfg.grid_config
+    pos = torch.rand((256, 3), generator=torch.Generator(device).manual_seed(
+        seed), device=device)
+    table = params["table"].detach().clone().requires_grad_()
+    for name, fn in (("encode", hashgrid.encode),
+                     ("encode_per_level", hashgrid.encode_per_level)):
+        def fwd_bwd(fn=fn):
+            fn(table, pos, g).sum().backward()
+        fwd_bwd()
+        t0 = time.perf_counter()
+        fwd_bwd()
+        synced(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        p = profile(fwd_bwd, ms, 3, warm=True)
+        res[name] = {k: p[k] for k in ("wall_ms", "device_busy_ms",
+                                       "device_ops_per_call")}
+        table.grad = None
+    return res
+
+
+def decoder_runs_identical(cfg, xyz, feats, seed: int, device,
+                           epochs: int = 1) -> bool:
+    """Two train_decoder runs from the same seed on the fused cloud give
+    the same bits."""
+    from splatloc_tpu_torch.train import decoder_train
+    outs = [decoder_train.train_decoder(cfg, xyz, feats, num_epochs=epochs,
+                                        seed=seed, log_every=0,
+                                        device=device)[0]
+            for _ in range(2)]
+    return all(torch.equal(a, b) for a, b in
+               zip([outs[0]["table"], *outs[0]["layers"]],
+                   [outs[1]["table"], *outs[1]["layers"]]))
+
+
+def decoder_fit(tmp: str, xyz, seed: int, device, calib: dict | None,
+                epochs: int = FIT_EPOCHS) -> dict:
+    """The descriptor field learned at full width: the fused points
+    labelled by phase 11's seeded decoder train a decoder from another
+    seed (the per-epoch losses kept on the card, read once), which then
+    localizes phase 11's queries (their descriptors are phase 11's
+    decoder's at the true key Gaussians, plus noise) from phase 12's
+    learned map."""
+    from splatloc_tpu_torch.cli.config import save_dir_for
+    from splatloc_tpu_torch.cli.test import EvalSession
+    from splatloc_tpu_torch.fields import FeatureFieldConfig, decode, \
+        init_decoder
+    from splatloc_tpu_torch.train import decoder_train
+
+    config = localize_config(tmp, calib)
+    cfg = FeatureFieldConfig.from_config(config)
+    teacher = init_decoder(cfg, torch.Generator(device).manual_seed(seed),
+                           device=device)
+    xyz_d = torch.as_tensor(xyz, device=device)
+    with torch.no_grad():
+        labels = torch.cat([decode(teacher, xyz_d[i:i + 65536], cfg)
+                            for i in range(0, len(xyz_d), 65536)])
+    del teacher
+    params = init_decoder(cfg, torch.Generator(device).manual_seed(seed + 2),
+                          device=device)
+    for t in [params["table"], *params["layers"]]:
+        t.requires_grad_(True)
+    opt = decoder_train.make_optimizer(params)
+    epoch_fn = decoder_train.make_train_epoch(cfg, opt, params)
+    rng = np.random.default_rng(seed)
+    n_batches = len(xyz) // 256
+    t0 = time.perf_counter()
+    losses = [epoch_fn(xyz_d, labels, torch.as_tensor(
+        rng.permutation(len(xyz))[:n_batches * 256].reshape(n_batches, 256),
+        device=device)) for _ in range(epochs)]
+    curve = torch.stack(losses).cpu().tolist()
+    train_s = time.perf_counter() - t0
+
+    src = Path(save_dir_for(config))
+    config["Results"]["save_dir"] = str(Path(tmp) / "fit_results")
+    save_dir = Path(save_dir_for(config))
+    (save_dir / "point_cloud" / "final").mkdir(parents=True, exist_ok=True)
+    shutil.copy(src / "point_cloud" / "final" / "point_cloud.ply",
+                save_dir / "point_cloud" / "final" / "point_cloud.ply")
+    decoder_train.save_params(params, str(save_dir / "train_feat"
+                                          / "ckpt.npz"))
+    session = EvalSession(config, str(save_dir), device=device)
+    t0 = time.perf_counter()
+    m_t, m_r = session.eval_pose()
+    report = pose_report(save_dir / "eval_pose.txt")
+    solved = (save_dir / "eval_pose.txt").read_text()
+    return {"epochs": epochs, "points": int(len(xyz)),
+            "loss_curve": curve, "train_s": train_s,
+            "eval_pose_s": time.perf_counter() - t0,
+            "queries": len(m_t),
+            "solved_line": [x for x in solved.splitlines()
+                            if x.startswith("Solved")],
+            "median_m_deg": [float(np.median(m_t)), float(np.median(m_r))],
+            "report_cm_deg": report, "limits": LOC_LIMITS}
+
+
+def protocol_phase(tmp: str, seed: int, device, card: str,
+                   calib: dict | None = None, epochs: int = PROTO_EPOCHS,
+                   capacity: int = TRAIN_CAPACITY,
+                   refine_iters: int = MAP_REFINE_ITERS,
+                   fit_epochs: int = FIT_EPOCHS) -> dict:
+    """Phase 13: the protocol on phase 11's frames through every CLI's
+    main (preprocess extract-features, gen-retrieval, gen-fusion;
+    train_gaussians; train_decoder; test --eval_pose --eval_rendering
+    --eval_selection --save_pose --save_match; replay), into a fresh
+    generated folder, with every kernel's launch count set to 0 just before
+    and read just after; then each stage on one input against the CPU
+    path, the kernels against their plain versions on the learned map,
+    the decoder step's profile, two decoder runs compared bit for bit, and
+    the decoder fit."""
+    from splatloc_tpu_torch.cli import preprocess, replay, train_decoder
+    from splatloc_tpu_torch.cli import test as cli_test
+    from splatloc_tpu_torch.cli import train_gaussians
+    from splatloc_tpu_torch.cli.config import save_dir_for
+    from splatloc_tpu_torch.data import load_dataset
+    from splatloc_tpu_torch.fields import FeatureFieldConfig, mesh
+    from splatloc_tpu_torch.scene.ply import read_ply_vertices
+
+    t_phase = time.perf_counter()
+    config, cfg_path = protocol_config(tmp, calib)
+    sp_path, nv_path = write_random_weights(tmp, seed, device)
+    gen = Path(config["Dataset"]["generated_folder"]) / Path(
+        config["Dataset"]["dataset_path"]).name
+    save_dir = Path(save_dir_for(config))
+    dev = ["--device", str(device)]
+    cfg = ["--config", str(cfg_path)]
+    stages = {}
+    log(f"protocol: set-up (random weights, NetVLAD "
+        f"{json.dumps(NETVLAD_SHAPE)}) {time.perf_counter() - t_phase:.1f} s")
+
+    synced(device)
+    reset_launches()
+    run_stage("extract_features", lambda: preprocess.main(
+        ["extract-features", *cfg, "--superpoint", sp_path, *dev]), stages,
+        device)
+    run_stage("gen_retrieval", lambda: preprocess.main(
+        ["gen-retrieval", *cfg, "--netvlad", nv_path, *dev]), stages, device)
+    _, fusion_out = run_stage("gen_fusion", lambda: preprocess.main(
+        ["gen-fusion", *cfg, "--superpoint", sp_path, "--voxel_size",
+         str(PROTO_VOXEL), *dev]), stages, device)
+    run_stage("train_gaussians", lambda: train_gaussians.main(
+        [*cfg, "--refinement_iters", str(refine_iters), "--capacity",
+         str(capacity), *dev]), stages, device)
+    ckpt, dec_out = run_stage("train_decoder", lambda: train_decoder.main(
+        [*cfg, "--num_epochs", str(epochs), *dev]), stages, device)
+    run_stage("test", lambda: cli_test.main(
+        [*cfg, "--eval_pose", "--eval_rendering", "--eval_selection",
+         "--save_pose", "--save_match", *dev]), stages, device)
+    # every query replayed: random weights localize some far off
+    run_stage("replay", lambda: replay.main(
+        ["--save_dir", str(save_dir), "--mesh", str(gen / "mesh.ply"),
+         "--out", str(save_dir / "replay3d"), "--max_dist", "1000"]),
+        stages, device)
+    launches = read_launches()
+
+    # what the stages wrote
+    v = read_ply_vertices(str(gen / "sp_inloc_pc.ply"))
+    xyz = np.stack([v["x"], v["y"], v["z"]], -1).astype(np.float32)
+    feats = np.load(gen / "sp_inloc_feat.npy").astype(np.float32)
+    verts, faces, _, _ = mesh.load_mesh_ply(str(gen / "mesh.ply"))
+    curve = [float(x.split("cos loss ")[1]) for x in dec_out.splitlines()
+             if x.startswith("decoder epoch")]
+    train_ds = load_dataset(config, train=True)
+    test_ds = load_dataset(config, train=False)
+    rendering = (save_dir / "eval_rendering.txt").read_text()
+    psnr = float(rendering.split("mean_psnr: ")[1].split()[0])
+    frames = sorted((save_dir / "replay3d").glob("frame_*.png"))
+    res = {"stages_s": stages, "phase_stages_s": sum(stages.values()),
+           "fused_points": int(len(xyz)),
+           "surface_line": [x for x in fusion_out.splitlines()
+                            if "surface points" in x],
+           "mesh": [int(len(verts)), int(len(faces))],
+           "decoder_epochs": epochs,
+           "decoder_steps_per_epoch": max(len(xyz) // 256, 1),
+           "decoder_loss_logged": curve,
+           "eval_pose_cm_deg": pose_report(save_dir / "eval_pose.txt"),
+           "eval_selection_cm_deg": pose_report(
+               save_dir / "eval_selection_5000.txt"),
+           "psnr": psnr, "replay_frames": len(frames),
+           "launches": launches}
+    log(f"protocol on {card}: " + json.dumps(res))
+
+    # gates on the artifacts of tests/test_cli_protocol.py and the rest
+    need = [gen / "netvlad_retrieval.txt", gen / "sp_inloc_pc.ply",
+            gen / "sp_inloc_feat.npy", gen / "mesh.ply",
+            save_dir / "point_cloud" / "final" / "point_cloud.ply",
+            save_dir / "train_feat" / "ckpt.npz",
+            save_dir / "save_pose" / "match_t.npy"]
+    missing = [str(p) for p in need if not p.exists()]
+    if missing or ckpt != str(save_dir / "train_feat" / "ckpt.npz"):
+        raise AssertionError(f"protocol artifacts missing: {missing}")
+    table = (gen / "netvlad_retrieval.txt").read_text().splitlines()
+    if len(table) != len(test_ds) or any(
+            len(r.split()) != 1 + min(10, len(train_ds)) for r in table):
+        raise AssertionError(f"retrieval table {table}")
+    if len(list((gen / "score_map").glob("*_score.npy"))) != len(train_ds):
+        raise AssertionError("a score map is missing")
+    if feats.shape != (len(xyz), 256) or len(xyz) < 1000 or len(faces) < 1000:
+        raise AssertionError(f"fused cloud {feats.shape} for {len(xyz)} "
+                             f"points, mesh {len(faces)} faces")
+    medians = res["eval_pose_cm_deg"] + res["eval_selection_cm_deg"]
+    if not (np.isfinite(medians).all() and psnr > 10.0
+            and "mean_ssim:" in rendering and "mean_lpips:" in rendering):
+        raise AssertionError(f"medians {medians}, PSNR {psnr}: {rendering}")
+    if len(frames) != len(test_ds) or len(list(
+            (save_dir / "save_match").glob("*.npy"))) != len(test_ds):
+        raise AssertionError(f"{len(frames)} replay frames for "
+                             f"{len(test_ds)} queries")
+    if len(curve) < 2 or not curve[-1] < curve[0]:
+        raise AssertionError(f"decoder loss did not fall: {curve}")
+    if any(n < 1 for n in launches.values()):
+        raise AssertionError(f"a kernel did not launch in the protocol: "
+                             f"{launches}")
+
+    t0 = time.perf_counter()
+    chk = protocol_cpu_check(config, nv_path, sp_path, xyz, seed, device)
+    chk["check_s"] = time.perf_counter() - t0
+    log("protocol: each stage on the card vs the CPU path "
+        + json.dumps(chk) + f" (limits {json.dumps(PROTO_CPU_LIMITS)}, "
+        f"flip shares {TSDF_FLIP_SHARE}, {FUSE_FLIP_SHARE})")
+    bad = [k for k, lim in PROTO_CPU_LIMITS.items() if not chk[k] <= lim]
+    if (bad or not chk["retrieval_same"] or not chk["retrieval_file_same"]
+            or chk["tsdf_flips"] > TSDF_FLIP_SHARE * chk["voxels"]
+            or not chk["tsdf_flips_on_boundary"]
+            or chk["fused_weight_flips"]
+            > FUSE_FLIP_SHARE * chk["fused_points"]):
+        raise AssertionError(f"card and CPU path differ: {bad} {chk}")
+    res["cpu_check"] = chk
+
+    # the kernels against their plain versions on query 0's view of the
+    # protocol's learned map
+    from splatloc_tpu_torch.scene import ply as ply_mod
+    scene = ply_mod.load_scene(str(save_dir / "point_cloud" / "final"
+                                   / "point_cloud.ply"), device=device)
+    q0 = test_ds.get_frame(0)
+    cam = Camera.create(q0["w2c"], test_ds.fx, test_ds.fy, test_ds.cx,
+                        test_ds.cy, test_ds.width, test_ds.height,
+                        device=device)
+    res["kernel_errs"], _, n_pairs = kernels_vs_plain(scene, cam, seed)
+    log("protocol: kernels vs plain on query 0's view of the learned map "
+        + json.dumps({**res["kernel_errs"], "pairs": n_pairs}))
+    del scene
+
+    fcfg = FeatureFieldConfig.from_config(config)
+    t0 = time.perf_counter()
+    res["step"] = decoder_step_report(fcfg, xyz, feats, seed, device)
+    log(f"protocol: decoder step ({time.perf_counter() - t0:.1f} s) "
+        + json.dumps(res["step"]))
+    t0 = time.perf_counter()
+    res["decoder_bit_identical"] = decoder_runs_identical(fcfg, xyz, feats,
+                                                          seed, device)
+    log(f"protocol: two train_decoder runs (1 epoch each, seed {seed}) "
+        f"bit-identical: {res['decoder_bit_identical']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    res["fit"] = decoder_fit(tmp, xyz, seed, device, calib, fit_epochs)
+    log(f"protocol: decoder fit ({time.perf_counter() - t0:.1f} s) "
+        + json.dumps(res["fit"]))
+    if not res["fit"]["loss_curve"][-1] < res["fit"]["loss_curve"][0]:
+        raise AssertionError(f"the fit's loss did not fall: "
+                             f"{res['fit']['loss_curve']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2082,29 +2625,36 @@ def main(argv=None) -> int:
         # 12. map: the mapping CLI on phase 11's dataset, counts set to 0
         # just before, read just after (inside map_phase)
         mapped = map_phase(tmp, args.seed, dev, card)
+        log(f"map: phase wall {mapped['phase_s']:.1f} s; phase 11's "
+            f"medians beside it: PnP {loc['median_m_deg']['pnp']}, refined "
+            f"{loc['median_m_deg']['refined']} (m, deg)")
+
+        # 13. protocol: every CLI from phase 11's frames to a replay,
+        # counts set to 0 just before, read just after (inside
+        # protocol_phase)
+        proto = protocol_phase(tmp, args.seed, dev, card)
+        log(f"protocol: phase wall {proto['phase_s']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"map: phase wall {mapped['phase_s']:.1f} s; phase 11's medians "
-        f"beside it: PnP {loc['median_m_deg']['pnp']}, refined "
-        f"{loc['median_m_deg']['refined']} (m, deg)")
 
     paths = {"serve": launches, "train": train["launches"],
-             "localize": loc["launches"], "map": mapped["launches"]}
+             "localize": loc["launches"], "map": mapped["launches"],
+             "protocol": proto["launches"]}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),
                 "launches_by_path": {n: p.get(k, 0)
                                      for n, p in paths.items()}}
 
-    # the worst error against the plain version over phases 5, 8, 9, 11
-    # and 12
+    # the worst error against the plain version over phases 5, 8, 9, 11,
+    # 12 and 13
     m["max_abs_err"] = max(m["max_abs_err"],
                            *(p["kernel_errs"]["fwd_pairwalk"]
-                             for p in (train, loc, mapped)))
+                             for p in (train, loc, mapped, proto)))
     for k in ("bwd_pairwalk", "seg_reduce"):
         bwd[k]["max_abs_err"] = max(bwd[k]["max_abs_err"],
                                     *(p["kernel_errs"][k]
-                                      for p in (train, loc, mapped)))
+                                      for p in (train, loc, mapped, proto)))
     # the reduction on the train path's own view, beside serve view 0's
     bwd["seg_reduce"]["train_view"] = train["kernel_errs"][
         "seg_reduce_timing"]
@@ -2131,6 +2681,7 @@ def main(argv=None) -> int:
          "folded_into": "seg_reduce",
          **launched("seg_reduce"), **bwd["seg_reduce"]},
     ]
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     # the run uses one device, cuda:0, whatever else the host shows

@@ -80,6 +80,37 @@ def superpoint_from_numpy(params: dict, device="cuda") -> dict:
     return _convs_from_numpy(params, device)
 
 
+def netvlad_from_numpy(params: dict, device="cuda") -> dict:
+    """NetVLAD params (the JAX package's HWIO VGG16 convs and 1x1
+    assignment conv, centers, whitening) -> the port's OIHW layout on
+    ``device``."""
+    return _convs_from_numpy(params, device)
+
+
+def autoencoder_from_numpy(params: dict, device="cuda") -> dict:
+    """Descriptor-autoencoder params ``{"enc": [{"w", "b"}, ...], "dec":
+    [...]}`` (the JAX layout, ``w`` [in, out]) as float32 tensors on
+    ``device``."""
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+    return {k: [{"w": t(lay["w"]), "b": t(lay["b"])} for lay in params[k]]
+            for k in ("enc", "dec")}
+
+
+def encoder_from_numpy(params: dict, device="cuda") -> dict:
+    """An ``fields.encoding`` encoder's params from the JAX package's:
+    the hash grid's ``{"table"}``, the dense grid's ``{"tables": [...]}``,
+    ``{}`` for the closed-form encoders."""
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+    out = {}
+    if "table" in params:
+        out["table"] = t(params["table"])
+    if "tables" in params:
+        out["tables"] = [t(x) for x in params["tables"]]
+    return out
+
+
 def lpips_from_numpy(params: dict, device="cuda") -> dict:
     """LPIPS AlexNet params (HWIO ``conv{i}_w``, ``conv{i}_b``, ``lin{i}``
     [C]) -> the port's OIHW layout on ``device``."""

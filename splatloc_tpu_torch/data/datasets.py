@@ -10,8 +10,8 @@ nothing of the JAX package):
   frame-XXXXXX.{color.jpg,depth.png,pose.txt}; INF poses -> valid=False;
   images resized to 640x480.
 - generated_folder artifacts: score_map/{name}_score.npy dense SuperPoint
-  saliency (the dense descriptors and the fused cloud that decoder
-  training reads come with it, ROADMAP A3).
+  saliency, sp_feature/{name}.pt dense descriptors (a torch file),
+  sp_inloc_pc.ply + sp_inloc_feat.npy fused cloud.
 
 get_frame returns the reference dict contract with numpy arrays.
 """
@@ -67,15 +67,24 @@ class _BaseDataset:
                            [0, 0, 1]], np.float64)
         self.depth_scale = cal.get("depth_scale", 1000.0)
 
+        self.load_sp_feat_flag = False
         self.load_score_flag = True
 
     def _set_generated(self, scene_name: str):
         gen = self.config["Dataset"].get("generated_folder", "")
         self.generated_folder = os.path.join(gen, scene_name)
+        self.sp_feat_path = os.path.join(self.generated_folder, "sp_feature")
         self.sp_score_path = os.path.join(self.generated_folder, "score_map")
+        self.sparse_ply = os.path.join(self.generated_folder,
+                                       "sp_inloc_pc.ply")
+        self.sparse_feature = os.path.join(self.generated_folder,
+                                           "sp_inloc_feat.npy")
 
     def __len__(self):
         return self.n_img
+
+    def set_feature_flag(self, value: bool):
+        self.load_sp_feat_flag = value
 
     def name_to_index(self, name: str) -> int:
         """Exact extension-stripped basename match (reference
@@ -91,6 +100,15 @@ class _BaseDataset:
         name = self.index_to_name(index)
         return np.load(os.path.join(self.sp_score_path,
                                     f"{name}_score.npy"))
+
+    def load_sp_feat(self, index: int) -> np.ndarray:
+        """Dense [H, W, 256] SuperPoint descriptors from the generated
+        folder (.pt torch file, reference utils/dataset.py:84-88)."""
+        import torch
+        name = self.index_to_name(index)
+        feat = torch.load(os.path.join(self.sp_feat_path, f"{name}.pt"),
+                          map_location="cpu")
+        return feat.squeeze().permute(1, 2, 0).contiguous().numpy()
 
     def load_all_depth(self) -> np.ndarray:
         out = []
@@ -123,6 +141,8 @@ class _BaseDataset:
             "valid": bool(valid),
             "img_path": self.color_paths[index],
         }
+        if self.load_sp_feat_flag and self.train:
+            ret["sp_feature"] = self.load_sp_feat(index)
         if self.load_score_flag and self.train:
             score = self.load_kp_feature_score(index)
             ret["sp_kp_score"] = score

@@ -77,10 +77,10 @@ def decode(params: dict, pos: torch.Tensor,
            cfg: FeatureFieldConfig) -> torch.Tensor:
     """pos [B,3] world -> [B, final_dim] L2-normalized descriptors."""
     gcfg = cfg.grid_config
-    lo = torch.tensor([b[0] for b in cfg.bound], dtype=torch.float32,
-                      device=pos.device)
-    hi = torch.tensor([b[1] for b in cfg.bound], dtype=torch.float32,
-                      device=pos.device)
+    lo = hashgrid._device_const([b[0] for b in cfg.bound], torch.float32,
+                                pos.device)
+    hi = hashgrid._device_const([b[1] for b in cfg.bound], torch.float32,
+                                pos.device)
     pos01 = (pos - lo) / (hi - lo)
     x = hashgrid.encode(params["table"], pos01, gcfg)
     for l, w in enumerate(params["layers"]):

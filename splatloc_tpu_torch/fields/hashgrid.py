@@ -67,14 +67,60 @@ def _corner_index(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor,
     n_corners = (res + 1) ** 3
     if n_corners <= table_size:
         return (ix * (res + 1) + iy) * (res + 1) + iz
-    h = (((ix * _PRIMES[0]) & _U32) ^ ((iy * _PRIMES[1]) & _U32)
-         ^ ((iz * _PRIMES[2]) & _U32))
-    return h % table_size
+    return _hash(ix, iy, iz) % table_size
+
+
+def _hash(ix, iy, iz):
+    return (((ix * _PRIMES[0]) & _U32) ^ ((iy * _PRIMES[1]) & _U32)
+            ^ ((iz * _PRIMES[2]) & _U32))
+
+
+# the 8 corners' (dx, dy, dz), corner c = 4 dx + 2 dy + dz
+_CORNERS = [((c >> 2) & 1, (c >> 1) & 1, c & 1) for c in range(8)]
 
 
 def encode(table: torch.Tensor, pos01: torch.Tensor,
            cfg: HashGridConfig) -> torch.Tensor:
-    """pos01 [B,3] in [0,1] -> [B, L*F] features (trilinear per level)."""
+    """pos01 [B,3] in [0,1] -> [B, L*F] features (trilinear per level).
+
+    Every level's 8 corners are indexed at once and read with one gather
+    from the flattened [L*T, F] table, so autograd accumulates the table's
+    gradient into one buffer. The corners are summed one after another
+    from zeros in the order 0..7, as the per-level form
+    (``encode_per_level``) and the JAX package sum them: the same bits."""
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
+    dev = pos01.device
+    pos01 = torch.clamp(pos01, 0.0, 1.0)
+    res_i = _device_const(cfg.resolutions, torch.int64, dev)      # [L]
+    x = pos01[:, None, :] * res_i.to(pos01.dtype)[None, :, None]  # [B,L,3]
+    x0 = torch.minimum(torch.clamp(torch.floor(x).to(torch.int64), min=0),
+                       (res_i - 1)[None, :, None])
+    w = x - x0.to(x.dtype)                                        # [B,L,3]
+    d = _device_const(_CORNERS, torch.int64, dev)                 # [8,3]
+    c = x0[:, :, None, :] + d                                     # [B,L,8,3]
+    ix, iy, iz = c.unbind(-1)
+    r1 = (res_i + 1)[None, :, None]
+    dense = (ix * r1 + iy) * r1 + iz
+    is_dense = _device_const([(r + 1) ** 3 <= T for r in cfg.resolutions],
+                             torch.bool, dev)[None, :, None]
+    idx = torch.where(is_dense, dense, _hash(ix, iy, iz) % T)
+    idx = idx + (torch.arange(L, device=dev) * T)[None, :, None]
+    vals = table.reshape(L * T, F)[idx]                           # [B,L,8,F]
+    wc = torch.where(d.bool(), w[:, :, None, :], 1 - w[:, :, None, :])
+    weight = wc[..., 0] * wc[..., 1] * wc[..., 2]                 # [B,L,8]
+    feats = torch.zeros((pos01.shape[0], L, F), dtype=torch.float32,
+                        device=dev)
+    for wc_, val in zip(weight.unbind(-1), vals.unbind(2)):
+        feats = feats + wc_[..., None] * val
+    return feats.reshape(pos01.shape[0], L * F)
+
+
+def encode_per_level(table: torch.Tensor, pos01: torch.Tensor,
+                     cfg: HashGridConfig) -> torch.Tensor:
+    """``encode`` as one gather per level and corner (16 x 8 on room_0's
+    grid), the JAX package's loop: the order ``encode`` keeps bit for bit.
+    Kept as its reference; each gather's backward fills the whole table
+    with zeros."""
     pos01 = torch.clamp(pos01, 0.0, 1.0)
     outs = []
     for l, res in enumerate(cfg.resolutions):
@@ -83,8 +129,7 @@ def encode(table: torch.Tensor, pos01: torch.Tensor,
         w = x - x0.to(x.dtype)                        # [B,3] in [0,1]
         feats = torch.zeros((pos01.shape[0], cfg.n_features),
                             dtype=torch.float32, device=pos01.device)
-        for corner in range(8):
-            dx, dy, dz = (corner >> 2) & 1, (corner >> 1) & 1, corner & 1
+        for dx, dy, dz in _CORNERS:
             idx = _corner_index(x0[:, 0] + dx, x0[:, 1] + dy, x0[:, 2] + dz,
                                 res, cfg.table_size)
             weight = ((w[:, 0] if dx else 1 - w[:, 0])
@@ -93,3 +138,10 @@ def encode(table: torch.Tensor, pos01: torch.Tensor,
             feats = feats + weight[:, None] * table[l, idx]
         outs.append(feats)
     return torch.cat(outs, dim=-1)
+
+
+def _device_const(values, dtype, device) -> torch.Tensor:
+    """A small constant on ``device`` without a host sync: the copy from
+    pageable memory is staged when it is issued, so the host goes on
+    queueing (a blocking copy would wait for the device's queue)."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)

@@ -677,3 +677,122 @@ def test_trace_on_card_names_the_kernels(cuda, tmp_path):
     files = list(tmp_path.glob("*.json"))
     assert len(files) == 1
     assert "fwd_pairwalk" in files[0].read_text()
+
+
+def _decoder_case(cuda, seed=0):
+    from splatloc_tpu_torch.fields import FeatureFieldConfig, init_decoder
+    from splatloc_tpu_torch.fields.hashgrid import HashGridConfig
+    cfg = FeatureFieldConfig(
+        bound=((-1.0, 1.0), (-1.0, 1.0), (-1.0, 1.0)), num_layers=4,
+        hidden_dim=128, final_dim=256,
+        grid=HashGridConfig(n_levels=16, log2_hashmap_size=14,
+                            desired_resolution=64))
+    g = torch.Generator(cuda).manual_seed(seed)
+    params = init_decoder(cfg, g, device=cuda)
+    params["table"] = params["table"] * 1e3
+    x = torch.rand((256, 3), generator=g, device=cuda) * 2 - 1
+    f = torch.randn((256, 256), generator=g, device=cuda)
+    return cfg, params, x, f
+
+
+def _train_steps(cfg, params, x, f, n=3):
+    from splatloc_tpu_torch.train import decoder_train
+    params = {"table": params["table"].clone().requires_grad_(),
+              "layers": [w.clone().requires_grad_()
+                         for w in params["layers"]]}
+    opt = decoder_train.make_optimizer(params)
+    losses = [decoder_train.train_step(params, opt, x, f, cfg)
+              for _ in range(n)]
+    return params, torch.stack(losses)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_decoder_steps_ignore_tf32_switches(cuda, tf32):
+    """Decoder training steps (forward, backward, Adam) give the same bits
+    with the caller's TF32 switches on as with them off, and two runs agree
+    bit for bit; the switches are the caller's again afterwards."""
+    cfg, params, x, f = _decoder_case(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref, ref_loss = _train_steps(cfg, params, x, f)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        got, loss = _train_steps(cfg, params, x, f)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        assert torch.backends.cudnn.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+    assert torch.equal(loss, ref_loss)
+    assert torch.equal(got["table"], ref["table"])
+    for a, b in zip(got["layers"], ref["layers"]):
+        assert torch.equal(a, b)
+
+
+def test_decoder_step_makes_no_host_sync(cuda):
+    """A training step queues its work without waiting for the device."""
+    from splatloc_tpu_torch.train import decoder_train
+    cfg, params, x, f = _decoder_case(cuda, seed=1)
+    for p in [params["table"], *params["layers"]]:
+        p.requires_grad_(True)
+    opt = decoder_train.make_optimizer(params)
+    decoder_train.train_step(params, opt, x, f, cfg)
+    _, n = count_syncs(lambda: decoder_train.train_step(params, opt, x, f,
+                                                        cfg))
+    assert n == 0
+
+
+def test_netvlad_ignores_tf32_switches(cuda):
+    """NetVLAD's convolutions and whitening run in full float32 whatever
+    the caller's switches, and agree with the CPU path within 1e-5."""
+    from splatloc_tpu_torch.match import netvlad
+    params = netvlad.init_params(torch.Generator(cuda).manual_seed(0),
+                                 whiten_dim=256, device=cuda)
+    img = torch.rand((96, 128, 3), generator=torch.Generator(
+        cuda).manual_seed(1), device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = netvlad.global_descriptor(params, img)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = netvlad.global_descriptor(params, img)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, ref)
+    cpu = netvlad.global_descriptor({k: v.cpu() for k, v in params.items()},
+                                    img.cpu())
+    assert float((ref.cpu() - cpu).abs().max()) <= 1e-5
+
+
+def test_fusion_on_card_matches_cpu(cuda):
+    """integrate_frame and fuse_point_features on the card against the CPU
+    path: weights and colours equal but for voxels at a pixel boundary
+    (at most 1e-4 of them), tsdf within 1e-5, fused features within
+    1e-5."""
+    from splatloc_tpu_torch.fields import fusion
+    rng = np.random.default_rng(3)
+    depth = (2.0 + 0.5 * rng.uniform(size=(48, 64))).astype(np.float32)
+    rgb = rng.uniform(size=(48, 64, 3)).astype(np.float32)
+    K = np.array([[50.0, 0, 32], [0, 50.0, 24], [0, 0, 1]])
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.05, -0.02, 0.1]
+    bound = np.array([[-1.5, 1.5], [-1.2, 1.2], [0.5, 3.5]], np.float32)
+    vols = [fusion.integrate_frame(
+        fusion.TSDFVolume.create(bound, 0.05, device=d), depth, rgb, K, c2w)
+        for d in (cuda, "cpu")]
+    g, c = vols
+    flipped = ((g.weight.cpu() != c.weight)
+               | (g.color.cpu() != c.color).any(-1))
+    assert float(flipped.float().mean()) <= 1e-4
+    assert float((g.tsdf.cpu() - c.tsdf)[~flipped].abs().max()) <= 1e-5
+    pts, _ = fusion.extract_surface_points(c)
+    feat = rng.normal(size=(48, 64, 8)).astype(np.float32)
+    fg, wg = fusion.fuse_point_features(pts, [(feat, depth, c2w)], K, 8,
+                                        device=cuda)
+    fc, wc = fusion.fuse_point_features(pts, [(feat, depth, c2w)], K, 8,
+                                        device="cpu")
+    assert (wg != wc).mean() <= 1e-3 and wc.any()
+    same = wg == wc
+    assert np.abs(fg[same] - fc[same]).max() <= 1e-5

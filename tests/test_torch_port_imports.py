@@ -70,6 +70,17 @@ def test_port_imports_pull_in_no_jax():
                 "splatloc_tpu_torch.eval.metrics",
                 "splatloc_tpu_torch.eval.selection",
                 "splatloc_tpu_torch.dist.multihost",
+                "splatloc_tpu_torch.cli.preprocess",
+                "splatloc_tpu_torch.cli.train_decoder",
+                "splatloc_tpu_torch.cli.replay",
+                "splatloc_tpu_torch.match.netvlad",
+                "splatloc_tpu_torch.fields.fusion",
+                "splatloc_tpu_torch.fields.mesh",
+                "splatloc_tpu_torch.fields.encoding",
+                "splatloc_tpu_torch.fields.autoencoder",
+                "splatloc_tpu_torch.eval.replay3d",
+                "splatloc_tpu_torch.data.colmap",
+                "splatloc_tpu_torch.data.grad_mask",
                 "chip_smoke", "kernel_ab"):
         assert mod in report["imported"], mod
 
