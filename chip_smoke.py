@@ -11,8 +11,9 @@ and its CLI's capacity of 2^19 Gaussians; localization of query images
 through ``cli/test.py``'s ``EvalSession`` (descriptor field, 2D-3D
 matching, PnP and render-loss pose refinement); the mapping CLI
 (``cli/train_gaussians.py``) from a dataset on disk to a saved map that
-``EvalSession`` localizes from; and the offline protocol from RGB-D frames
-to a replay through every CLI. Phases:
+``EvalSession`` localizes from; the offline protocol from RGB-D frames
+to a replay through every CLI; and the multi-GPU layer's sharded render
+and mapping step, with every rank on the card. Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
              and ``nvidia-smi``'s name and power limit
@@ -109,6 +110,23 @@ to a replay through every CLI. Phases:
              per-level form; two decoder runs bit for bit; and a decoder
              fit: trained on the fused points labelled by phase 11's
              decoder, it localizes phase 11's queries
+
+14. dist     the multi-GPU layer (``dist``), every rank on the card: the
+             kernels built first, then groups of 2 and of 4 ranks spawned
+             with ``torch.multiprocessing`` over gloo (nccl refuses two
+             ranks on one device; nccl runs as well where each rank has a
+             card of its own). (a) serve view 0 through
+             ``rasterize_sharded`` on a tile mesh of every rank, forward
+             and backward: image and depth bit-identical to the
+             single-process render, nothing dropped, the grads of means,
+             opacities and colors within 1e-6 relative L2; (b) in the
+             group of 4, ``make_sharded_mapping_step`` on a (data=2,
+             gauss=2) mesh at phase 9's configuration (capacity 2^19, a
+             window of 5 keyframes of the room) against the unsharded
+             step (loss rtol 1e-5, xyz atol 1e-5), and two runs bit for
+             bit. Each rank's launch counts are set to 0 just before its
+             runs and read just after; it prints its pairs, walls,
+             collectives with their bytes and host syncs
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -2502,6 +2520,402 @@ def protocol_phase(tmp: str, seed: int, device, card: str,
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 14: the multi-GPU layer, every rank on the card
+# --------------------------------------------------------------------------
+
+# rank groups of the phase; ranks that share one card talk over gloo (nccl
+# refuses two ranks on one device), nccl runs where each rank has a card
+DIST_WORLDS = (2, 4)
+# a group that has not finished in this time is killed and the phase fails
+DIST_TIMEOUT_S = 300.0
+# (a) the sharded backward against the single-process one: the same
+# per-pair gradients, a Gaussian's per-tile sums added across ranks in
+# another order
+DIST_GRAD_REL_L2 = 1e-6
+# (b) the sharded mapping step against the unsharded one (tests/test_dist.py
+# ::test_sharded_mapping_step_runs' limits): the window's losses and
+# gradients summed over ranks in another order
+DIST_STEP_LIMITS = {"loss_rtol": 1e-5, "xyz_atol": 1e-5}
+DIST_SERVE_GRADS = ("means", "opacities", "colors")
+
+
+def serve_leaves(scene, cam) -> dict:
+    """The inputs ``render`` gives ``rasterize`` for this view, as leaves
+    that take gradients."""
+    colors = torch.cat([sh.sh_to_color(scene.sh_degree, scene.features(),
+                                       scene.xyz, cam.camera_center),
+                        scene.kp_score], dim=-1)
+    leaves = {"means": scene.xyz, "scales": scene.scaling_activated(),
+              "quats": scene.rotation,
+              "opacities": scene.opacity_activated(), "colors": colors}
+    return {k: v.detach().clone().requires_grad_(True)
+            for k, v in leaves.items()}
+
+
+def dist_loss(out) -> torch.Tensor:
+    """tests/test_dist.py's loss on a render."""
+    return torch.mean(out.image ** 2) + 0.1 * torch.mean(out.depth)
+
+
+def trainer_state(trainer) -> dict:
+    """A trainer's configuration, scene, Adam state, densify statistics
+    and its first window of keyframes, as tensors."""
+    sc = trainer.scene
+    return {"cfg": trainer.cfg,
+            "scene": {k: getattr(sc, k) for k in
+                      GaussianScene.PARAM_FIELDS + ("alive",)},
+            "sh_degree": sc.sh_degree,
+            "opt": {"step": trainer.opt_state.step,
+                    "m": trainer.opt_state.m, "v": trainer.opt_state.v},
+            "stats": {k: getattr(trainer.stats, k) for k in
+                      ("xyz_gradient_accum", "denom", "max_radii2d")},
+            "frames": trainer.frames.gather(range(trainer.cfg.window_size))}
+
+
+def state_objects(state: dict, device):
+    """(scene, opt_state, stats, frames) of trainer_state's dict."""
+    from splatloc_tpu_torch.scene import densify, optim
+    to = {k: v.to(device) for k, v in state["scene"].items()}
+    scene = GaussianScene(**to, sh_degree=state["sh_degree"])
+    o = state["opt"]
+    opt = optim.AdamState(step=o["step"].to(device),
+                          m={k: v.to(device) for k, v in o["m"].items()},
+                          v={k: v.to(device) for k, v in o["v"].items()})
+    stats = densify.DensifyStats(**{k: v.to(device)
+                                    for k, v in state["stats"].items()})
+    frames = {k: v.to(device) for k, v in state["frames"].items()}
+    return scene, opt, stats, frames
+
+
+def dist_inputs(work: Path, scene, cam, cfg, room, seed: int, device,
+                capacity: int, cfg_changes: dict | None) -> dict:
+    """Writes what the ranks read: (a) the serve scene's view ``cam`` with
+    the single-process render and grads, (b) a trainer on phase 9's
+    configuration after one window of keyframes, with the single-process
+    mapping step from its state. Returns what is logged of them."""
+    from splatloc_tpu_torch.raster import rasterize
+    from splatloc_tpu_torch.train.mapping import make_mapping_step
+    leaves = serve_leaves(scene, cam)
+    out = rasterize(*leaves.values(), cam, cfg)
+    grads = torch.autograd.grad(dist_loss(out), [leaves[k] for k in
+                                                 DIST_SERVE_GRADS])
+    torch.save({"leaves": {k: v.detach() for k, v in leaves.items()},
+                "w2c": cam.w2c, "intrinsics": (cam.fx, cam.fy, cam.cx,
+                                               cam.cy, cam.width,
+                                               cam.height),
+                "cfg": cfg, "image": out.image.detach(),
+                "depth": out.depth.detach(),
+                "grads": dict(zip(DIST_SERVE_GRADS, grads))},
+               work / "serve.pt")
+
+    tcfg = replica_config(**(cfg_changes or {}))
+    trainer = MappingTrainer(tcfg, capacity=capacity, seed=seed,
+                             device=device)
+    for f in make_keyframes(room, tcfg, tcfg.window_size, device):
+        trainer.add_keyframe(*f)
+    state = trainer_state(trainer)
+    sc, opt, stats, frames = state_objects(state, device)
+    s, _, _, loss, _, nd = make_mapping_step(state["cfg"])(
+        sc, opt, stats, frames, 1)
+    state["ref"] = {"loss": loss, "xyz": s.xyz, "n_dropped": nd}
+    torch.save(state, work / "train.pt")
+    synced(device)
+    return {"serve_visible": int((out.radii > 0).sum()),
+            "train_alive": int(trainer.scene.num_alive),
+            "train_capacity": trainer.scene.capacity,
+            "train_views": tcfg.window_size,
+            "train_loss": float(loss), "train_n_dropped": nd.tolist()}
+
+
+def _syncs(fn, device):
+    """(fn's result, its host syncs on the card; None on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return fn(), None
+    return count_syncs(fn)
+
+
+def _rank_render(mesh, work: Path, device) -> dict:
+    """Phase 14 (a) on one rank: the serve view through rasterize_sharded,
+    forward and backward, twice (the first run also loads the kernels and
+    opens the group's connections), each held to the single-process
+    render."""
+    from splatloc_tpu_torch.dist.sharded_raster import rasterize_sharded
+    from splatloc_tpu_torch.utils.profiling import log_collectives
+    inp = torch.load(work / "serve.pt", map_location=device,
+                     weights_only=False)
+    fx, fy, cx, cy, w, h = inp["intrinsics"]
+    cam = Camera.create(inp["w2c"].cpu().numpy(), fx, fy, cx, cy, w, h,
+                        device=device)
+    cfg = inp["cfg"]
+    leaves = {k: v.requires_grad_(True) for k, v in inp["leaves"].items()}
+    runs = []
+    synced(device)
+    reset_launches()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with log_collectives() as fwd_log:
+            out, fwd_syncs = _syncs(lambda: rasterize_sharded(
+                *leaves.values(), cam, cfg, mesh), device)
+        synced(device)
+        t1 = time.perf_counter()
+        with log_collectives() as bwd_log:
+            grads, bwd_syncs = _syncs(lambda: torch.autograd.grad(
+                dist_loss(out), [leaves[k] for k in DIST_SERVE_GRADS]),
+                device)
+        synced(device)
+        runs.append({
+            "fwd_ms": (t1 - t0) * 1e3,
+            "bwd_ms": (time.perf_counter() - t1) * 1e3,
+            "counters": [int(out.n_dropped), int(out.n_trunc),
+                         int(out.n_vis_dropped)],
+            "syncs": {"forward": fwd_syncs, "backward": bwd_syncs},
+            "collectives": {"forward": fwd_log, "backward": bwd_log},
+            "image_equal": bool(torch.equal(out.image, inp["image"])),
+            "depth_equal": bool(torch.equal(out.depth, inp["depth"])),
+            "grad_rel_l2": {k: rel_l2(g, inp["grads"][k])
+                            for k, g in zip(DIST_SERVE_GRADS, grads)}})
+    launches = read_launches()
+    # this rank's pair array and pairs, rebuilt outside the counted runs
+    with torch.no_grad():
+        proj = project.project_gaussians(
+            leaves["means"], leaves["scales"], leaves["quats"], cam, cfg,
+            opacities=leaves["opacities"])
+        gpair, pr, _ = hopper_raster._pair_inputs(
+            (proj.u, proj.v), (proj.conic_a, proj.conic_b, proj.conic_c),
+            leaves["opacities"], proj.depth, leaves["colors"],
+            (proj.radius_x, proj.radius_y), proj.visible,
+            binning.depth_sort(proj), w, h, cfg, mesh, "tile")
+    res = {"pairs": int(pr["counts"].sum()),
+           "pair_array": int(gpair.shape[1]),
+           "tiles": int(pr["counts"].numel()), "launches": launches,
+           "runs": runs}
+    bad = []
+    for i, r in enumerate(runs):
+        bad += [f"run {i} {k}" for k in ("image_equal", "depth_equal")
+                if not r[k]]
+        bad += [f"run {i} {k}" for k, e in r["grad_rel_l2"].items()
+                if not e <= DIST_GRAD_REL_L2]
+        if r["counters"][0] != 0:
+            bad.append(f"run {i} n_dropped")
+    if bad:
+        raise AssertionError(f"rank {mesh.rank}: the sharded render "
+                             f"disagrees with the single-process one on "
+                             f"{bad}: {json.dumps(res)}")
+    return res
+
+
+def _rank_step(mesh, work: Path, device) -> dict:
+    """Phase 14 (b) on one rank: make_sharded_mapping_step on a (data=2,
+    gauss=2) mesh, twice from the same state, held to the unsharded step
+    and to itself bit for bit."""
+    from splatloc_tpu_torch.dist import shard
+    from splatloc_tpu_torch.utils.profiling import log_collectives
+    state = torch.load(work / "train.pt", map_location=device,
+                       weights_only=False)
+    scene, opt, stats, frames = state_objects(state, device)
+    step = shard.make_sharded_mapping_step(state["cfg"], mesh)
+    runs, walls, logs, syncs = [], [], [], []
+    launches = {k: 0 for k in read_launches()}
+    for _ in range(2):
+        opt_sh, stats_sh = shard.shard_state(mesh, opt, stats)
+        scene_sh = shard.shard_scene(mesh, scene)
+        synced(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        with log_collectives() as calls:
+            out, n_sync = _syncs(lambda: step(scene_sh, opt_sh, stats_sh,
+                                              frames, 1), device)
+        synced(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: n + read_launches()[k] for k, n in launches.items()}
+        logs.append(calls)
+        syncs.append(n_sync)
+        s, o, st, loss, vis, nd = out
+        full = shard.gather_scene(mesh, s)
+        got = {f"scene.{k}": getattr(full, k) for k in shard.SCENE_FIELDS}
+        for k in o.m:
+            got[f"m.{k}"] = mesh.all_gather(o.m[k], "gauss")
+            got[f"v.{k}"] = mesh.all_gather(o.v[k], "gauss")
+        for k in shard.STATS_FIELDS:
+            got[f"stats.{k}"] = mesh.all_gather(getattr(st, k), "gauss")
+        got.update({"vis": mesh.all_gather(vis, "gauss"), "loss": loss,
+                    "n_dropped": nd})
+        runs.append(got)
+    ref = state["ref"]
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    loss_rel = abs(float(runs[0]["loss"]) - float(ref["loss"])) / abs(
+        float(ref["loss"]))
+    xyz_err = float((runs[0]["scene.xyz"] - ref["xyz"]).abs().max())
+    res = {"step_ms": walls, "loss": float(runs[0]["loss"]),
+           "ref_loss": float(ref["loss"]), "loss_rel": loss_rel,
+           "xyz_max_abs": xyz_err,
+           "n_dropped": runs[0]["n_dropped"].tolist(),
+           "runs_differ_on": differ, "launches": launches,
+           "syncs": syncs, "collectives": logs[0],
+           "views": len(range(mesh.index("data"), frames["w2c"].shape[0],
+                              mesh.shape["data"]))}
+    bad = list(differ)
+    if not loss_rel <= DIST_STEP_LIMITS["loss_rtol"]:
+        bad.append("loss")
+    if not xyz_err <= DIST_STEP_LIMITS["xyz_atol"]:
+        bad.append("xyz")
+    if not torch.equal(runs[0]["n_dropped"], ref["n_dropped"]):
+        bad.append("n_dropped")
+    if bad:
+        raise AssertionError(f"rank {mesh.rank}: the sharded mapping step "
+                             f"fails on {bad}: {json.dumps(res)}")
+    return res
+
+
+def dist_rank(rank: int, world: int, port: int, backend: str, work: str,
+              device_type: str) -> None:
+    """One rank of a phase 14 group (torch.multiprocessing.spawn's
+    target): joins the group, runs (a) on a tile mesh of every rank and, in
+    a group of 4, (b) on a (2, 2) mesh, and writes its results to
+    ``work/rank<world>_<rank>.json``. Any failed check raises."""
+    import torch.distributed as dist
+    from splatloc_tpu_torch.dist import multihost, shard
+    work = Path(work)
+    if device_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        device = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        res = {"rank": rank, "world": world, "backend": backend,
+               "device": str(device),
+               "render": _rank_render(multihost.global_mesh(tile=world),
+                                      work, device)}
+        if world == 4:
+            res["step"] = _rank_step(shard.make_mesh(data=2, gauss=2),
+                                     work, device)
+        (work / f"rank{world}_{backend}_{rank}.json").write_text(
+            json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_group(world: int, backend: str, work: Path, device) -> list:
+    """Spawns ``world`` ranks of dist_rank and waits for them all: a rank
+    that raises, or a group past DIST_TIMEOUT_S, fails the phase and no
+    rank is left running. Returns the ranks' results."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(dist_rank, args=(world, _free_port(), backend, str(work),
+                                    torch.device(device).type),
+                   nprocs=world, join=False)
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{world} {backend} ranks still running "
+                                   f"after {DIST_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [json.loads((work / f"rank{world}_{backend}_{r}.json")
+                       .read_text()) for r in range(world)]
+
+
+def _collective_summary(calls: list) -> list:
+    return [f"{c['op']} {c['dtype']}{c['shape']} {c['bytes']} B"
+            for c in calls]
+
+
+def dist_phase(scene, cam, cfg, seed: int, device, card: str,
+               capacity: int = TRAIN_CAPACITY,
+               cfg_changes: dict | None = None, room=None) -> dict:
+    """Phase 14: rasterize_sharded on the serve view and the sharded
+    mapping step, in groups of DIST_WORLDS ranks on the card."""
+    t_phase = time.perf_counter()
+    if room is None:
+        room = make_room_scene(N_GAUSSIANS, seed, device)
+    backends = {w: ["gloo"] + (["nccl"] if torch.device(device).type
+                               == "cuda" and torch.cuda.device_count() >= w
+                               else []) for w in DIST_WORLDS}
+    launches = {"fwd_pairwalk": 0, "bwd_pairwalk": 0, "seg_reduce": 0}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        info = dist_inputs(work, scene, cam, cfg, room, seed, device,
+                           capacity, cfg_changes)
+        log(f"dist: inputs {json.dumps(info)}")
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        groups = {}
+        for world in DIST_WORLDS:
+            for backend in backends[world]:
+                t0 = time.perf_counter()
+                ranks = run_group(world, backend, work, device)
+                wall = time.perf_counter() - t0
+                groups[f"{world}_{backend}"] = ranks
+                log(f"dist: {world} ranks over {backend} on {card}, "
+                    f"{wall:.1f} s for the group (start-up included)")
+                for r in ranks:
+                    a = r["render"]
+                    runs = a["runs"]
+                    log(f"dist:   rank {r['rank']}/{world} ({r['device']}) "
+                        f"render: {a['pairs']} pairs in a {a['pair_array']}"
+                        f"-pair array over {a['tiles']} tiles; two runs: "
+                        f"forward " + " / ".join(
+                            f"{x['fwd_ms']:.3f}" for x in runs)
+                        + " ms, backward " + " / ".join(
+                            f"{x['bwd_ms']:.3f}" for x in runs)
+                        + f" ms, counters {runs[0]['counters']}, host "
+                        f"syncs {[x['syncs'] for x in runs]}, grad rel L2 "
+                        f"{json.dumps([x['grad_rel_l2'] for x in runs])}, "
+                        f"image and depth bit-identical, launches "
+                        f"{a['launches']}; collectives of a run: forward "
+                        f"{_collective_summary(runs[1]['collectives']['forward'])}"
+                        f", backward "
+                        f"{_collective_summary(runs[1]['collectives']['backward'])}")
+                    for k in launches:
+                        launches[k] += a["launches"][k]
+                    if "step" in r:
+                        b = r["step"]
+                        log(f"dist:   rank {r['rank']}/{world} mapping step "
+                            f"(data, gauss) = (2, 2), {b['views']} views: "
+                            f"{b['step_ms'][0]:.3f} / {b['step_ms'][1]:.3f} "
+                            f"ms, loss {b['loss']} against {b['ref_loss']} "
+                            f"(rel {b['loss_rel']:.3e}), xyz max abs "
+                            f"{b['xyz_max_abs']:.3e}, n_dropped "
+                            f"{b['n_dropped']}, two runs bit-identical, "
+                            f"host syncs {b['syncs']}, launches "
+                            f"{b['launches']}; collectives "
+                            f"{_collective_summary(b['collectives'])}")
+                        for k in launches:
+                            launches[k] += b["launches"][k]
+        for world in DIST_WORLDS:
+            if torch.device(device).type == "cuda" and len(
+                    backends[world]) == 1:
+                log(f"dist: nccl at {world} ranks skipped: "
+                    f"{torch.cuda.device_count()} card(s), nccl takes one "
+                    f"rank a card")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"dist: launches on the sharded paths {json.dumps(launches)}; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the sharded paths was never "
+                             f"launched: {launches}")
+    return {"launches": launches, "groups": groups,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2637,9 +3051,14 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # 14. dist: the sharded render and mapping step in groups of 2 and 4
+    # ranks on the card, counts set to 0 just before each rank's runs and
+    # read just after (inside dist_phase's ranks)
+    sharded = dist_phase(scene, cams[0], cfg, args.seed, dev, card)
+
     paths = {"serve": launches, "train": train["launches"],
              "localize": loc["launches"], "map": mapped["launches"],
-             "protocol": proto["launches"]}
+             "protocol": proto["launches"], "dist": sharded["launches"]}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),

@@ -1,14 +1,14 @@
 """ctypes bindings for the native IO runtime (native/splatloc_io.cpp).
 
-The PNG readers and the PLY reader and writer of
-``splatloc_tpu.data.native_io``, copied (the port imports nothing of the JAX
-package): the dataset loaders and ``scene/ply.py`` call them; the frame
-prefetcher is not ported. ``native/`` is a C library of the repository, not
-a module of the JAX package, so the port loads the same
-``libsplatloc_io.so``. It is
-built on first use if missing (g++ with libpng); every entry point has a
-pure-Python fallback, so the port works without the native layer — it is
-the fast path, not a dependency.
+The PNG readers, the PLY reader and writer and the threaded frame
+prefetcher of ``splatloc_tpu.data.native_io``, copied (the port imports
+nothing of the JAX package): the dataset loaders and ``scene/ply.py`` call
+the readers and the writer; ``FramePrefetcher`` has no caller, as in the
+JAX package. ``native/`` is a C library of the repository, not a module of
+the JAX package, so the port loads the same ``libsplatloc_io.so``. It is
+built on first use if missing (g++ with libpng); every reader and writer
+has a pure-Python fallback, so the port works without the native layer —
+it is the fast path, not a dependency.
 """
 from __future__ import annotations
 
@@ -60,6 +60,14 @@ def _load():
         lib.sl_ply_write_f32.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                          ctypes.c_int, ctypes.c_void_p,
                                          ctypes.c_longlong]
+        lib.sl_loader_create.restype = ctypes.c_void_p
+        lib.sl_loader_create.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int]
+        lib.sl_loader_get.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p, ctypes.c_void_p]
+        lib.sl_loader_destroy.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -114,3 +122,53 @@ def ply_write_f32(path: str, names: list[str], data: np.ndarray) -> bool:
     rc = lib.sl_ply_write_f32(path.encode(), names_nl, len(names),
                               data.ctypes.data, data.shape[0])
     return rc == 0
+
+
+class FramePrefetcher:
+    """Threaded read-ahead RGB-D decoding (the native data-loader runtime):
+    ``n_threads`` workers decode up to ``read_ahead`` frames past the last
+    one asked for. Frames should be consumed roughly in order; the
+    read-ahead window advances with consumption. Raises RuntimeError where
+    the native library is unavailable."""
+
+    def __init__(self, rgb_paths, depth_paths, width, height,
+                 n_threads: int = 4, read_ahead: int = 8):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native IO unavailable")
+        self._lib = lib
+        self.width, self.height = width, height
+        n = len(rgb_paths)
+        rgb_arr = (ctypes.c_char_p * n)(*[p.encode() for p in rgb_paths])
+        dep_arr = (ctypes.c_char_p * n)(*[p.encode() for p in depth_paths])
+        self._handle = lib.sl_loader_create(rgb_arr, dep_arr, n, width,
+                                            height, n_threads, read_ahead)
+        self._n = n
+
+    def get(self, idx: int):
+        """(rgb [H, W, 3] uint8, depth [H, W] uint16) of frame ``idx``."""
+        rgb = np.empty((self.height, self.width, 3), np.uint8)
+        dep = np.empty((self.height, self.width), np.uint16)
+        rc = self._lib.sl_loader_get(self._handle, idx, rgb.ctypes.data,
+                                     dep.ctypes.data)
+        if rc != 0:
+            raise IOError(f"frame {idx} failed to decode")
+        return rgb, dep
+
+    def close(self):
+        if self._handle:
+            self._lib.sl_loader_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -79,13 +79,40 @@ def _hash(ix, iy, iz):
 _CORNERS = [((c >> 2) & 1, (c >> 1) & 1, c & 1) for c in range(8)]
 
 
+class _TableGather(torch.autograd.Function):
+    """Rows ``idx`` of a [R, F] table. The backward sums each row's
+    cotangents in index order on either device, so it is deterministic:
+    ``index_put_`` with accumulate sorts the indices stably first on CUDA
+    (the default gather's backward there, kept bit for bit), but adds them
+    in thread order on a CPU with several threads; ``index_add_`` adds them
+    in index order there."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = flat.shape[0]
+        return flat[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        F = grad.shape[-1]
+        out = grad.new_zeros((ctx.rows, F))
+        idx, grad = idx.reshape(-1), grad.reshape(-1, F)
+        if grad.is_cuda:
+            out.index_put_((idx,), grad, accumulate=True)
+        else:
+            out.index_add_(0, idx, grad)
+        return out, None
+
+
 def encode(table: torch.Tensor, pos01: torch.Tensor,
            cfg: HashGridConfig) -> torch.Tensor:
     """pos01 [B,3] in [0,1] -> [B, L*F] features (trilinear per level).
 
     Every level's 8 corners are indexed at once and read with one gather
-    from the flattened [L*T, F] table, so autograd accumulates the table's
-    gradient into one buffer. The corners are summed one after another
+    from the flattened [L*T, F] table, so the table's gradient accumulates
+    into one buffer, in a fixed order (``_TableGather``). The corners are summed one after another
     from zeros in the order 0..7, as the per-level form
     (``encode_per_level``) and the JAX package sum them: the same bits."""
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
@@ -105,7 +132,7 @@ def encode(table: torch.Tensor, pos01: torch.Tensor,
                              torch.bool, dev)[None, :, None]
     idx = torch.where(is_dense, dense, _hash(ix, iy, iz) % T)
     idx = idx + (torch.arange(L, device=dev) * T)[None, :, None]
-    vals = table.reshape(L * T, F)[idx]                           # [B,L,8,F]
+    vals = _TableGather.apply(table.reshape(L * T, F), idx)       # [B,L,8,F]
     wc = torch.where(d.bool(), w[:, :, None, :], 1 - w[:, :, None, :])
     weight = wc[..., 0] * wc[..., 1] * wc[..., 2]                 # [B,L,8]
     feats = torch.zeros((pos01.shape[0], L, F), dtype=torch.float32,

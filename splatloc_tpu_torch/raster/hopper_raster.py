@@ -163,13 +163,76 @@ def _pair_inputs(xy, conic, opacity, depth, colors, radius, visible, order,
                                   gpair.device)
 
 
+def _shard_rows(width, height, ts, D):
+    """(rows_dev, H_local, Tl) of a tile grid whose rows are split over D
+    ranks: each rank holds rows_dev = ceil(gy / D) tile rows, H_local
+    pixels and Tl tiles; the grid is padded to D * rows_dev rows, whose
+    phantom rows past the image are dropped."""
+    gx = -(-width // ts)
+    rows_dev = -(-(-(-height // ts)) // D)
+    return rows_dev, rows_dev * ts, rows_dev * gx
+
+
+def _pair_inputs(xy, conic, opacity, depth, colors, radius, visible, order,
+                 width, height, cfg, mesh=None, axis="tile"):
+    """Everything the walk reads: (gpair [rows, PC], the build_pairs dict
+    plus ``n_vis_dropped``, origins [2T] int32).
+
+    All per-Gaussian inputs are unsorted; ``order`` is the depth
+    permutation. cfg.visible_cap K (None = N) keeps the first K depth ranks
+    before pair building (invisible Gaussians sort to the end); visible
+    Gaussians beyond K are dropped and counted in ``n_vis_dropped``.
+
+    With ``mesh``, this rank bins pairs only for its own block of tile rows
+    along ``axis`` (every rect shifted up by the block's first pixel row),
+    under the per-rank pair budget ceil(pair_cap_factor * K *
+    shard_pair_margin / D), and its tiles keep their pixel origins in the
+    padded global grid; its drop counters are its own."""
+    C = colors.shape[-1]
+    n = (xy[0] if isinstance(xy, tuple) else xy).shape[0]
+
+    K = n if cfg.visible_cap is None else min(int(cfg.visible_cap), n)
+    n_vis = torch.sum(visible, dtype=torch.int32)
+    n_vis_dropped = torch.clamp(n_vis - K, min=0)
+    order = order[:K]
+
+    per_gs = _build_per_g(xy, conic,
+                          torch.where(visible, opacity,
+                                      torch.zeros_like(opacity)),
+                          depth, colors, order, radius_xy=radius,
+                          visible_f=visible.to(torch.float32))
+    rrx, rry, rvis = _rect_rows(C)
+    rect_u, rect_v = per_gs[R_X, :K], per_gs[R_Y, :K]
+    rect_r = (per_gs[rrx, :K], per_gs[rry, :K])
+    rect_vis = per_gs[rvis, :K] > 0.5
+    ts = cfg.tile_size
+    if mesh is None:
+        pr = pairs_mod.build_pairs((rect_u, rect_v), rect_r, rect_vis,
+                                   width, height, cfg)
+        origins = _origins_on(width, height, ts, per_gs.device)
+    else:
+        D, d = mesh.shape[axis], mesh.index(axis)
+        _, H_local, Tl = _shard_rows(width, height, ts, D)
+        pair_cap_local = int(np.ceil(cfg.pair_cap_factor * K
+                                     * cfg.shard_pair_margin / D))
+        pr = pairs_mod.build_pairs((rect_u, rect_v - float(d * H_local)),
+                                   rect_r, rect_vis, width, H_local, cfg,
+                                   pair_cap=pair_cap_local)
+        origins = _origins_on(width, D * H_local, ts,
+                              per_gs.device)[2 * d * Tl:2 * (d + 1) * Tl]
+    gpair = _gather_pairs(per_gs, torch.clamp(pr["pair_idx"], max=K))
+    pr["n_vis_dropped"] = n_vis_dropped
+    return gpair, pr, origins
+
+
 def _forward_impl(xy, conic, opacity, depth, colors, radius, visible, order,
-                  width, height, cfg):
-    """(acc [T, C+4, P], the build_pairs dict, gpair, origins) of one
-    render."""
+                  width, height, cfg, mesh=None, axis="tile"):
+    """(acc, the build_pairs dict, gpair, origins) of one render. acc is
+    [T, C+4, P]; with ``mesh``, it is this rank's [Tl, C+4, P] block of
+    tile rows (see _pair_inputs)."""
     gpair, pr, origins = _pair_inputs(xy, conic, opacity, depth, colors,
                                       radius, visible, order, width, height,
-                                      cfg)
+                                      cfg, mesh, axis)
     out = fwd_pairwalk(gpair, pr["starts"], pr["counts"], origins,
                        colors.shape[-1], cfg)
     return out, pr, gpair, origins
@@ -773,16 +836,33 @@ seg_reduce.launches = 0
 
 
 def _backward_impl(pr, gpair, fwd_out, cot, order, origins, width, height,
-                   cfg, n, C):
+                   cfg, n, C, mesh=None, axis="tile"):
     """Per-Gaussian grads (du, dv, dca, dcb, dcc, dop, ddepth, dcolors) in
     the unsorted order; the first K depth ranks (cfg.visible_cap) carry
-    them, ranks past K get zeros."""
+    them, ranks past K get zeros.
+
+    With ``mesh``, ``fwd_out`` and the build_pairs dict are this rank's
+    block of tile rows and ``cot`` the whole image's [T, C+2, P] cotangent,
+    the same on every rank: the rank takes its rows of it (zeros on the
+    phantom rows past the image), walks and reduces its own pairs, and the
+    one collective is the sum of the [K, rows] per-Gaussian sums over
+    ``axis``."""
     K = n if cfg.visible_cap is None else min(int(cfg.visible_cap), n)
+    if mesh is None:
+        kmax = pairs_mod.big_tiles_for(cfg, width, height)
+    else:
+        D, d = mesh.shape[axis], mesh.index(axis)
+        _, H_local, Tl = _shard_rows(width, height, cfg.tile_size, D)
+        cot = torch.nn.functional.pad(
+            cot, (0, 0, 0, 0, 0, D * Tl - cot.shape[0]))[d * Tl:(d + 1) * Tl]
+        kmax = pairs_mod.big_tiles_for(cfg, width, H_local)
+    cot = cot.contiguous()
     jhi = _jhi(fwd_out, pr["starts"], pr["counts"], C)
     slab = bwd_pairwalk(gpair, pr["starts"], pr["counts"], origins, jhi,
                         fwd_out, cot, C, cfg)
-    seg = seg_reduce(slab, pr["pair_idx"], pr["per_rank_counts"],
-                     pairs_mod.big_tiles_for(cfg, width, height))
+    seg = seg_reduce(slab, pr["pair_idx"], pr["per_rank_counts"], kmax)
+    if mesh is not None:
+        seg = mesh.all_reduce(seg, axis)
     full = seg.new_zeros((n, seg.shape[1]))
     full.index_copy_(0, order[:K].long(), seg)
     return (full[:, R_X], full[:, R_Y], full[:, R_CA], full[:, R_CB],
@@ -800,40 +880,55 @@ _PR_KEYS = ("starts", "counts", "pair_idx", "per_rank_counts")
 class _BlendPairs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, v, ca, cb, cc, opacity, depth, colors, rx, ry,
-                visible_f, order, width, height, cfg):
+                visible_f, order, width, height, cfg, mesh, axis):
         out, pr, gpair, origins = _forward_impl(
             (u, v), (ca, cb, cc), opacity, depth, colors, (rx, ry),
-            visible_f > 0.5, order, width, height, cfg)
+            visible_f > 0.5, order, width, height, cfg, mesh, axis)
         counters = (pr["n_dropped"], pr["n_trunc"], pr["n_vis_dropped"])
-        ctx.mark_non_differentiable(*counters)
         ctx.save_for_backward(gpair, out, origins, order,
                               *(pr[k] for k in _PR_KEYS))
-        ctx.meta = (width, height, cfg, u.shape[0], colors.shape[-1])
+        ctx.meta = (width, height, cfg, u.shape[0], colors.shape[-1], mesh,
+                    axis)
+        if mesh is not None:
+            # the drop counters summed over the ranks (n_vis_dropped is the
+            # same on every rank), and every rank's rows of the image: the
+            # caller's loss sees the whole image on every rank
+            summed = mesh.all_reduce(torch.stack(counters[:2]), axis)
+            counters = (summed[0], summed[1], counters[2])
+            T = (-(-width // cfg.tile_size)) * (-(-height // cfg.tile_size))
+            out = mesh.all_gather(out, axis)[:T]
+        ctx.mark_non_differentiable(*counters)
         return (out,) + counters
 
     @staticmethod
     def backward(ctx, d_out, *_counter_grads):
         """Mirrors the JAX package's _blend_bwd_rule: the n_contrib and
         t_final cotangents and the drop counters' are dropped; the binning
-        inputs (radius, visible_f, order) get no gradient."""
+        inputs (radius, visible_f, order) get no gradient. Under a mesh the
+        cotangent of the gathered image is the same on every rank (the loss
+        is computed on every rank), so it is not summed over ranks: each
+        rank takes its own rows of it (_backward_impl)."""
         gpair, out, origins, order, *pr_vals = ctx.saved_tensors
-        width, height, cfg, n, C = ctx.meta
-        none7 = (None,) * 7
+        width, height, cfg, n, C, mesh, axis = ctx.meta
+        none9 = (None,) * 9
         if d_out is None:
-            return (None,) * 8 + none7
+            return (None,) * 8 + none9
         pr = dict(zip(_PR_KEYS, pr_vals))
-        cot = d_out[:, :C + 2].contiguous()
-        grads = _backward_impl(pr, gpair, out, cot, order, origins, width,
-                               height, cfg, n, C)
-        return grads + none7
+        grads = _backward_impl(pr, gpair, out, d_out[:, :C + 2], order,
+                               origins, width, height, cfg, n, C, mesh, axis)
+        return grads + none9
 
 
 def blend_pairs(xy, conic, opacity, depth, colors, radius, visible_f, order,
-                width: int, height: int, cfg: RasterConfig):
+                width: int, height: int, cfg: RasterConfig, mesh=None,
+                axis: str = "tile"):
     """Differentiable pair blend over UNSORTED per-Gaussian screen
     quantities: ``xy`` is the tuple (u, v), ``conic`` (a, b, c), ``radius``
     (rx, ry); ``order`` is the integer depth permutation. radius/visible_f/
-    order direct the binning only and get no gradient.
+    order direct the binning only and get no gradient. With ``mesh`` (a
+    ``dist.multihost.Mesh``), the tile rows shard over its ``axis``: each
+    rank bins, walks and reduces only its own rows' pairs, and the result
+    is the same on every rank (see _BlendPairs).
 
     Returns (acc [T, C+4, P] attr-major, n_dropped, n_trunc,
     n_vis_dropped): C channels, expected depth, alpha (the sum of blend
@@ -843,7 +938,8 @@ def blend_pairs(xy, conic, opacity, depth, colors, radius, visible_f, order,
     ca, cb, cc = conic
     rx, ry = radius
     return _BlendPairs.apply(u, v, ca, cb, cc, opacity, depth, colors, rx,
-                             ry, visible_f, order, width, height, cfg)
+                             ry, visible_f, order, width, height, cfg, mesh,
+                             axis)
 
 
 def assemble_image(acc, width, height, cfg, bg):

@@ -5,6 +5,8 @@ Port of ``splatloc_tpu.utils.profiling``:
 - ``trace``: a torch.profiler window written as a Chrome/Perfetto trace
 - ``Timer``: wall-clock timer that waits for the device's results
 - ``count_syncs``: the host syncs a function makes on the card
+- ``log_collectives``: the torch.distributed collectives a block calls,
+  with their sizes
 - ``throughput_mpix_s``: megapixels rendered per second
 - ``MetricsLogger``: structured jsonl metrics stream, the JAX package's
   records
@@ -108,6 +110,35 @@ def count_syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     return out, sum(SYNC_WARNING in str(x.message) for x in w)
+
+
+@contextlib.contextmanager
+def log_collectives():
+    """Record every ``torch.distributed.all_reduce`` and ``all_gather``
+    called inside the block: yields a list that fills with one dict per
+    call (op, shape, dtype, bytes of this rank's input tensor)."""
+    import torch.distributed as dist
+    calls = []
+    saved = dist.all_reduce, dist.all_gather
+
+    def record(op, t):
+        calls.append({"op": op, "shape": list(t.shape),
+                      "dtype": str(t.dtype).replace("torch.", ""),
+                      "bytes": t.numel() * t.element_size()})
+
+    def all_reduce(tensor, *a, **kw):
+        record("all_reduce", tensor)
+        return saved[0](tensor, *a, **kw)
+
+    def all_gather(tensor_list, tensor, *a, **kw):
+        record("all_gather", tensor)
+        return saved[1](tensor_list, tensor, *a, **kw)
+
+    dist.all_reduce, dist.all_gather = all_reduce, all_gather
+    try:
+        yield calls
+    finally:
+        dist.all_reduce, dist.all_gather = saved
 
 
 def throughput_mpix_s(width: int, height: int, iters: int,

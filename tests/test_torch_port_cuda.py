@@ -796,3 +796,51 @@ def test_fusion_on_card_matches_cpu(cuda):
     assert (wg != wc).mean() <= 1e-3 and wc.any()
     same = wg == wc
     assert np.abs(fg[same] - fc[same]).max() <= 1e-5
+
+
+def test_encode_backward_on_card_keeps_the_gather_bits(cuda, monkeypatch):
+    """hashgrid's table gather keeps, on the card, the bits of the plain
+    index's backward (index_put_ with accumulate, which sorts first)."""
+    from splatloc_tpu_torch.fields import hashgrid
+    cfg = hashgrid.HashGridConfig(desired_resolution=133)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.rand((16, cfg.table_size, 2), generator=g, device=cuda)
+    pos = torch.rand((4096, 3), generator=g, device=cuda)
+    ct = torch.randn((4096, cfg.out_dim), generator=g, device=cuda)
+
+    def table_grad():
+        t = table.clone().requires_grad_()
+        (hashgrid.encode(t, pos, cfg) * ct).sum().backward()
+        return t.grad
+
+    got = table_grad()
+    monkeypatch.setattr(hashgrid._TableGather, "apply",
+                        lambda flat, idx: flat[idx])
+    assert torch.equal(got, table_grad())
+
+
+def test_sharded_render_of_one_rank_on_card(cuda):
+    """rasterize_sharded on a mesh of one rank (no process group) runs the
+    three kernels once each, forward and backward, and gives rasterize's
+    image bit for bit and its gradients."""
+    from splatloc_tpu_torch.dist import global_mesh, rasterize_sharded
+    cam = Camera.create(np.eye(4, dtype=np.float32), 50.0, 50.0, W / 2,
+                        H / 2, W, H, device=cuda)
+    cfg = RasterConfig(use_pallas=True)
+    res = {}
+    for name, fn in (("single", lambda *a: rasterize(*a, cam, cfg)),
+                     ("sharded", lambda *a: rasterize_sharded(
+                         *a, cam, cfg, global_mesh(tile=1)))):
+        sc = [x.to(cuda).requires_grad_(True) for x in make_scene(9)]
+        kernels = (hopper_raster.fwd_pairwalk, hopper_raster.bwd_pairwalk,
+                   hopper_raster.seg_reduce)
+        before = [k.launches for k in kernels]
+        out = fn(*sc)
+        loss = (out.image ** 2).mean() + 0.05 * out.depth.mean()
+        grads = torch.autograd.grad(loss, sc)
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+        res[name] = (out.image, out.depth, grads)
+    assert torch.equal(res["sharded"][0], res["single"][0])
+    assert torch.equal(res["sharded"][1], res["single"][1])
+    for a, b in zip(res["sharded"][2], res["single"][2]):
+        assert torch.allclose(a, b, rtol=0, atol=1e-6)

@@ -116,8 +116,8 @@ def _graph_nodes(t):
 
 def test_encode_backward_is_one_gather():
     """room_0's grid (16 x 2^19) at batch 256: the graph holds one gather
-    (IndexBackward0) and no per-corner SelectBackward0, each of which
-    zero-filled the whole table; the ops stay under the ceiling."""
+    (hashgrid._TableGather) and no per-corner SelectBackward0, each of
+    which zero-filled the whole table; the ops stay under the ceiling."""
     cfg = thash.HashGridConfig(desired_resolution=133)
     table = torch.zeros((16, cfg.table_size, 2), requires_grad=True)
     pos = torch.rand((256, 3), generator=torch.Generator().manual_seed(2))
@@ -126,7 +126,7 @@ def test_encode_backward_is_one_gather():
         nodes = _graph_nodes(out)
         out.backward(torch.ones_like(out))
     assert "SelectBackward0" not in nodes, nodes
-    assert "IndexBackward0" in nodes, nodes
+    assert "_TableGatherBackward" in nodes, nodes
     assert count.n <= ENCODE_OP_CEILING, count.n
     # every level's 8 corners took weight from the batch
     assert float(table.grad.abs().sum()) == pytest.approx(256 * 16 * 2,

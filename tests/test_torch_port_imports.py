@@ -70,6 +70,8 @@ def test_port_imports_pull_in_no_jax():
                 "splatloc_tpu_torch.eval.metrics",
                 "splatloc_tpu_torch.eval.selection",
                 "splatloc_tpu_torch.dist.multihost",
+                "splatloc_tpu_torch.dist.shard",
+                "splatloc_tpu_torch.dist.sharded_raster",
                 "splatloc_tpu_torch.cli.preprocess",
                 "splatloc_tpu_torch.cli.train_decoder",
                 "splatloc_tpu_torch.cli.replay",
@@ -120,6 +122,20 @@ def test_port_mirrors_reference_module_paths():
                               "core/precision.py"):
             continue                     # port-only glue, no counterpart
         assert (ref / rel).exists(), rel
+
+
+def test_every_reference_module_is_ported():
+    """The converse: each module of the JAX package has its counterpart at
+    the same path in the port (pallas_raster's is hopper_raster)."""
+    ref = ROOT / "splatloc_tpu"
+    missing = []
+    for p in ref.rglob("*.py"):
+        rel = p.relative_to(ref)
+        if rel.name == "pallas_raster.py":
+            rel = rel.with_name("hopper_raster.py")
+        if not (PKG / rel).exists():
+            missing.append(rel.as_posix())
+    assert missing == []
 
 
 def test_walk_packages_sees_every_module():

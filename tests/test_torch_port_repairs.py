@@ -1,9 +1,11 @@
-"""Three repairs of the port, each with a test that failed before it:
+"""Four repairs of the port, each with a test that failed before it:
 
 - the auction's round indexes nothing with a boolean mask (a mask index is
   a ``nonzero``, which copies a count to the host every round on the card);
 - no port function leaves the process's TF32 switches changed;
-- refine_pose counts every host read it makes (``info["syncs"]``).
+- refine_pose counts every host read it makes (``info["syncs"]``);
+- the hash grid's backward gives the same bits on a CPU with several
+  threads.
 
 And refine_pose's raster path by device."""
 import numpy as np
@@ -261,3 +263,38 @@ def test_refine_pose_default_path_by_device():
                                   **kw)
     assert torch.equal(xa, xb)
     assert ia["levels"] == ib["levels"]
+
+
+def _encode_table_grad(table_np, pos, ct, cfg):
+    from splatloc_tpu_torch.fields import hashgrid
+    t = torch.from_numpy(table_np).requires_grad_()
+    (hashgrid.encode(t, pos, cfg) * ct).sum().backward()
+    return t.grad
+
+
+def test_encode_backward_is_deterministic_on_threads():
+    """Two backward passes of hashgrid.encode at 4 threads give the same
+    bits (index_put_'s accumulate added duplicate corners in thread order
+    there), equal to the one-thread gradient, and within
+    test_encode_table_gradient_matches_jax's limit of the per-level form's
+    gradient."""
+    from splatloc_tpu_torch.fields import hashgrid
+    cfg = hashgrid.HashGridConfig(desired_resolution=133)
+    rng = np.random.default_rng(4)
+    table = rng.uniform(-1, 1, (16, cfg.table_size, 2)).astype(np.float32)
+    pos = torch.from_numpy(rng.uniform(0, 1, (4096, 3)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(4096, cfg.out_dim))
+                          .astype(np.float32))
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        a = _encode_table_grad(table, pos, ct, cfg)
+        b = _encode_table_grad(table, pos, ct, cfg)
+    finally:
+        torch.set_num_threads(n_threads)
+    assert torch.equal(a, b)
+    assert torch.equal(a, _encode_table_grad(table, pos, ct, cfg))
+    t = torch.from_numpy(table).requires_grad_()
+    (hashgrid.encode_per_level(t, pos, cfg) * ct).sum().backward()
+    np.testing.assert_allclose(a.numpy(), t.grad.numpy(), rtol=1e-5,
+                               atol=1e-6)

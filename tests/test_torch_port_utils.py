@@ -2,7 +2,8 @@
 (MetricsLogger, Timer, throughput, trace), utils.logging (Log),
 dist.multihost.initialize (with a two-process gloo smoke mirroring
 tests/test_multihost.py), the native PLY bindings against the Python
-codec, and eval.visualize mirroring tests/test_visualize.py."""
+codec, the native frame prefetcher against the JAX package's, and
+eval.visualize mirroring tests/test_visualize.py."""
 import json
 import os
 import socket
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from splatloc_tpu.data import native_io as jnative_io
 from splatloc_tpu.eval import visualize as jvis
 from splatloc_tpu.utils import logging as jlogging
 from splatloc_tpu.utils import profiling as jprof
@@ -160,6 +162,38 @@ def test_two_process_gloo_smoke(tmp_path):
 def _native_or_skip():
     if not native_io.available():
         pytest.skip("the native IO library does not build here")
+
+
+@pytest.mark.parametrize("order", ["in_order", "shuffled"])
+def test_frame_prefetcher_matches_jax(tmp_path, rng, order):
+    """Where the library loads: PNG frames read through the JAX package's
+    FramePrefetcher and the port's give the same arrays, the written ones,
+    with the frames asked for in order and out of it."""
+    _native_or_skip()
+    from PIL import Image
+    n, w, h = 7, 24, 16
+    paths, frames = ([], []), []
+    for i in range(n):
+        rgb = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        dep = rng.integers(0, 65536, (h, w)).astype(np.uint16)
+        for k, img in enumerate((rgb, dep)):
+            paths[k].append(str(tmp_path / f"{'rd'[k]}{i}.png"))
+            Image.fromarray(img).save(paths[k][-1])
+        frames.append((rgb, dep))
+    idx = (list(range(n)) if order == "in_order"
+           else [int(i) for i in rng.permutation(n)])
+    got = {}
+    for name, mod in (("jax", jnative_io), ("port", native_io)):
+        pf = mod.FramePrefetcher(*paths, w, h, n_threads=2, read_ahead=3)
+        try:
+            got[name] = [pf.get(i) for i in idx]
+        finally:
+            pf.close()
+    for i, (a, b) in zip(idx, zip(got["port"], got["jax"])):
+        for x, y, want in zip(a, b, frames[i]):
+            assert x.dtype == y.dtype == want.dtype
+            np.testing.assert_array_equal(x, y)
+            np.testing.assert_array_equal(x, want)
 
 
 def test_native_ply_writer_matches_python_codec(tmp_path, monkeypatch, rng):
