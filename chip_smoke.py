@@ -12,8 +12,10 @@ through ``cli/test.py``'s ``EvalSession`` (descriptor field, 2D-3D
 matching, PnP and render-loss pose refinement); the mapping CLI
 (``cli/train_gaussians.py``) from a dataset on disk to a saved map that
 ``EvalSession`` localizes from; the offline protocol from RGB-D frames
-to a replay through every CLI; and the multi-GPU layer's sharded render
-and mapping step, with every rank on the card. Phases:
+to a replay through every CLI; the multi-GPU layer's sharded render
+and mapping step, with every rank on the card; and the reference-scale
+tools: the full-scale quality gate and the refinement basin table.
+Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
              and ``nvidia-smi``'s name and power limit
@@ -96,7 +98,7 @@ and mapping step, with every rank on the card. Phases:
              ``preprocess`` extract-features, gen-retrieval and gen-fusion
              (``--voxel_size 0.02``) into a fresh generated folder;
              ``train_gaussians`` with phase 12's cut; ``train_decoder`` at
-             room_0's full decoder width for 10 of the CLI's 41 epochs;
+             room_0's full decoder width for 3 of the CLI's 41 epochs;
              ``test
              --eval_pose --eval_rendering --eval_selection --save_pose
              --save_match``; ``replay``. Every artifact must exist and
@@ -127,6 +129,26 @@ and mapping step, with every rank on the card. Phases:
              bit. Each rank's launch counts are set to 0 just before its
              runs and read just after; it prints its pairs, walls,
              collectives with their bytes and host syncs
+15. gate     ``python -m splatloc_tpu_torch.tools.quality_gate`` (its
+             ``run``) at full width: 36 RGB-D keyframes at 640x480
+             rendered from a 60,000-Gaussian ground truth through the
+             tiled blend, incremental insertion and windowed 5-view steps
+             to GATE_SMOKE_ITERS of the tool's 2,200 iterations (8
+             densify/prune cycles), capacity 205,440, kp_budget 2,048,
+             4 held-out views scored on the pair kernels, with fresh
+             progress and checkpoint paths and the launch counts set to 0
+             just before and read just after: 5 launches of each kernel a
+             step and one forward a held-out view; the scores at or above
+             GATE_BARS; every drop counted, none after the last check and
+             none in the held-out renders; the three kernels against
+             their plain versions on the last held-out view
+16. table    ``python -m splatloc_tpu_torch.tools.refine_table`` with
+             TABLE_SEEDS seed a row (160x120, 500 Gaussians, six start
+             errors from 1 cm / 1 deg to 15 cm / 12 deg, refine_pose on
+             the pair kernels), the launch counts set to 0 just before and
+             read just after: every row's median final error within
+             LOC_LIMITS (5 mm, 0.1 deg); the three kernels against their
+             plain versions on the table's scene
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -139,12 +161,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2015,9 +2039,11 @@ def map_phase(tmp: str, seed: int, device, card: str,
 PROTO_VOXEL = 0.02       # preprocess gen-fusion --voxel_size
 # train_decoder's epochs, cut from the CLI's 41: at a host-bound 4.7-10.2
 # ms a step (597 steps an epoch) 41 epochs took 136-246 s and phase 13
-# 315-495 s; the logged loss is flat from epoch 10 (0.0008 -> 0.0006)
-PROTO_EPOCHS = 10
-FIT_EPOCHS = 10          # the decoder fit (a measurement beside the path)
+# 315-495 s; 10 epochs took 60-68 s. Cut to 3 to make room for phases 15
+# and 16: the gate below needs the loss to fall, not to flatten
+PROTO_EPOCHS = 3
+# the decoder fit (a measurement beside the path; 10 epochs took 63 s)
+FIT_EPOCHS = 3
 NETVLAD_SHAPE = dict(n_clusters=64, whiten_dim=4096)
 # the card against the port's CPU path on one input of each stage:
 # NetVLAD's 13 convolutions and whitening sum in another order; the tsdf
@@ -2916,6 +2942,143 @@ def dist_phase(scene, cam, cfg, seed: int, device, card: str,
             "phase_s": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# phases 15 and 16: the reference-scale tools
+# --------------------------------------------------------------------------
+
+# the gate's depth here, of the tool's 2,200 iterations: 8 of its 15
+# densify/prune cycles, the 8th at the last iteration, and no opacity
+# reset (the full run is the tool's own)
+GATE_SMOKE_ITERS = 1100
+GATE_EVAL_VIEWS = 4
+# the JAX package's test bars (tests/test_quality_gate.py: PSNR 30, SSIM
+# 0.85, kp contrast 5, 100,000 alive), each lowered to the tool's first
+# 1,100-iteration run on an H100 (PSNR 20.77, SSIM 0.751, kp contrast 3.9,
+# 100,168 alive; see PERF.md) less a margin of 2 dB, 0.03, 20 % and 10 %,
+# which is lower for all four: iteration 1,100 densifies and prunes, so
+# the held-out views score the map before any step repairs it (PSNR 38.54
+# at iteration 852 of the same run, 38.61 at 2,200)
+GATE_BARS = {"psnr": 18.77, "ssim": 0.721, "kp_contrast": 3.12,
+             "n_alive": 90_151}
+# refine_table's seeds a row here (the tool's default is 3)
+TABLE_SEEDS = 1
+
+
+def gate_phase(seed: int, device, card: str,
+               map_iters: int = GATE_SMOKE_ITERS, bars: dict | None = None,
+               **size) -> dict:
+    """Phase 15: ``splatloc_tpu_torch.tools.quality_gate`` at full width
+    (640x480, 60,000 GT Gaussians, 36 keyframes, capacity 205,440,
+    kp_budget 2,048; ``size`` a CPU rehearsal's smaller one) to
+    ``map_iters``, with fresh progress and checkpoint paths so it maps, and
+    every kernel's launch count set to 0 just before and read just after;
+    the launches, the bars, the drops (counted, none since the last check
+    and none in the eval renders) and the three kernels against their
+    plain versions on the last eval view."""
+    from splatloc_tpu_torch.tools import quality_gate
+
+    bars = GATE_BARS if bars is None else bars
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(os.environ, {
+            "SPLATLOC_GATE_LOG": str(Path(tmp) / "progress.jsonl"),
+            "SPLATLOC_GATE_CKPT": str(Path(tmp) / "ckpt.npz")}):
+        synced(device)
+        reset_launches()
+        run = quality_gate.run(n_eval=GATE_EVAL_VIEWS, map_iters=map_iters,
+                               seed=seed, device=device, **size)
+        synced(device)
+        launches = read_launches()
+        rows = [json.loads(x) for x in (Path(tmp) / "progress.jsonl")
+                .read_text().splitlines()]
+    res = run.result
+    trainer = run.trainer
+    eval_cfg = trainer.cfg.raster_config(device)
+    eval_drops = [drop_counters(trainer.scene,
+                                run.cam0.replace_pose(torch.from_numpy(w2c)),
+                                eval_cfg) for _, _, w2c in run.evals]
+    steps = trainer.cfg.window_size * res["iters"]
+    want = {"fwd_pairwalk": steps + len(run.evals), "bwd_pairwalk": steps,
+            "seg_reduce": steps}
+    info = {"result": res, "seconds": run.seconds,
+            "gt_pairs_dropped": run.gt_dropped,
+            "tail_pairs_dropped": run.tail_dropped,
+            "eval_drop_counters": eval_drops,
+            "peak_mem_gb": run.peak_mem_gb, "bars": bars,
+            "visible_cap": trainer.cfg.visible_cap,
+            "pair_cap_override": trainer.cfg.pair_cap_override,
+            "capacity": trainer.scene.capacity,
+            "launches": launches, "launches_expected": want}
+    log(f"gate on {card}: " + json.dumps(info))
+    if launches != want:
+        raise AssertionError(f"gate launches {launches}, expected {want}")
+    if res["resumed"] or res["iters"] != map_iters:
+        raise AssertionError(f"the gate did not map to {map_iters}: {res}")
+    if [r["phase"] for r in rows] != (["mapping"] + ["eval_view"]
+                                      * len(run.evals) + ["final"]):
+        raise AssertionError(f"progress rows {rows}")
+    if not all(np.isfinite(res[k]) for k in ("psnr", "ssim", "kp_contrast")):
+        raise AssertionError(f"non-finite gate scores: {res}")
+    low = [k for k, bar in bars.items() if not res[k] >= bar]
+    if low:
+        raise AssertionError(f"gate below its bars on {low}: {res} "
+                             f"(bars {bars})")
+    # every drop is surfaced (counted in n_dropped_total and escalated at
+    # the densify check) and bounded: none since the last check, none in
+    # the held-out renders
+    if run.tail_dropped or any(any(c) for c in eval_drops):
+        raise AssertionError(f"pairs dropped after the last check "
+                             f"({run.tail_dropped}) or in the eval renders "
+                             f"({eval_drops})")
+    _, _, w2c = run.evals[-1]
+    errs, _, n_pairs = kernels_vs_plain(
+        trainer.scene, run.cam0.replace_pose(torch.from_numpy(w2c)), seed)
+    log("gate: kernels vs plain on the last eval view of the gate's map "
+        + json.dumps({**errs, "pairs": n_pairs}))
+    info["kernel_errs"] = errs
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"gate: phase wall {info['phase_s']:.1f} s")
+    return info
+
+
+def refine_table_phase(seed: int, device, card: str,
+                       seeds: int = TABLE_SEEDS) -> dict:
+    """Phase 16: ``splatloc_tpu_torch.tools.refine_table`` with ``seeds``
+    seeds a row, every kernel's launch count set to 0 just before and read
+    just after; every row's median final error within LOC_LIMITS' refined
+    limit, and the three kernels against their plain versions on the
+    table's scene at 160x120."""
+    from splatloc_tpu_torch.tools import refine_table
+
+    t_phase = time.perf_counter()
+    synced(device)
+    reset_launches()
+    rows = refine_table.main(device=device, seeds=seeds)
+    synced(device)
+    launches = read_launches()
+    log(f"refine_table on {card}: " + json.dumps(
+        {"rows": rows, "launches": launches}))
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was never launched by the table's "
+                             f"refinements: {launches}")
+    t_lim = LOC_LIMITS["match_median_t_m"] * 100
+    r_lim = LOC_LIMITS["match_median_r_deg"]
+    far = [r for r in rows if not (r["t_err_cm"] <= t_lim
+                                   and r["r_err_deg"] <= r_lim)]
+    if len(rows) != len(refine_table.ROWS) or far:
+        raise AssertionError(f"refinement left rows past {t_lim} cm / "
+                             f"{r_lim} deg: {far}")
+    scene = refine_table.make_scene(np.random.default_rng(seed),
+                                    device=device)
+    errs, _, n_pairs = kernels_vs_plain(scene, refine_table.camera(device),
+                                        seed)
+    log("refine_table: kernels vs plain on the table's scene "
+        + json.dumps({**errs, "pairs": n_pairs}))
+    res = {"rows": rows, "launches": launches, "kernel_errs": errs,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"refine_table: phase wall {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3056,9 +3219,18 @@ def main(argv=None) -> int:
     # read just after (inside dist_phase's ranks)
     sharded = dist_phase(scene, cams[0], cfg, args.seed, dev, card)
 
+    # 15. gate: the port's quality gate at full width, counts set to 0
+    # just before, read just after (inside gate_phase)
+    gate = gate_phase(args.seed, dev, card)
+
+    # 16. refine_table: the refinement basin table, counts set to 0 just
+    # before, read just after (inside refine_table_phase)
+    table = refine_table_phase(args.seed, dev, card)
+
     paths = {"serve": launches, "train": train["launches"],
              "localize": loc["launches"], "map": mapped["launches"],
-             "protocol": proto["launches"], "dist": sharded["launches"]}
+             "protocol": proto["launches"], "dist": sharded["launches"],
+             "gate": gate["launches"], "refine_table": table["launches"]}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),
@@ -3066,14 +3238,14 @@ def main(argv=None) -> int:
                                      for n, p in paths.items()}}
 
     # the worst error against the plain version over phases 5, 8, 9, 11,
-    # 12 and 13
+    # 12, 13, 15 and 16
+    checked = (train, loc, mapped, proto, gate, table)
     m["max_abs_err"] = max(m["max_abs_err"],
                            *(p["kernel_errs"]["fwd_pairwalk"]
-                             for p in (train, loc, mapped, proto)))
+                             for p in checked))
     for k in ("bwd_pairwalk", "seg_reduce"):
         bwd[k]["max_abs_err"] = max(bwd[k]["max_abs_err"],
-                                    *(p["kernel_errs"][k]
-                                      for p in (train, loc, mapped, proto)))
+                                    *(p["kernel_errs"][k] for p in checked))
     # the reduction on the train path's own view, beside serve view 0's
     bwd["seg_reduce"]["train_view"] = train["kernel_errs"][
         "seg_reduce_timing"]
