@@ -14,7 +14,8 @@ matching, PnP and render-loss pose refinement); the mapping CLI
 ``EvalSession`` localizes from; the offline protocol from RGB-D frames
 to a replay through every CLI; the multi-GPU layer's sharded render
 and mapping step, with every rank on the card; and the reference-scale
-tools: the full-scale quality gate and the refinement basin table.
+tools: the full-scale quality gate, the refinement basin table and the
+query path's rehearsal at the size of a real scene.
 Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
@@ -149,6 +150,27 @@ Phases:
              read just after: every row's median final error within
              LOC_LIMITS (5 mm, 0.1 deg); the three kernels against their
              plain versions on the table's scene
+17. rehearsal ``python -m splatloc_tpu_torch.tools.eval_rehearsal`` (its
+             ``run``) at full width: 110,000 Gaussians, 100 database views
+             rendered at 640x480 on the pair kernels, 5,000 of 30,000 key
+             Gaussians selected as landmarks, SuperPoint at 4,096 key
+             points (random weights), frustum points padded to 4,096 and
+             decoded, the 4,096 x 4,096 auction, PnP on 512 matches x 256
+             hypotheses, 3 refinements of 64 iterations a level on
+             110,000 Gaussians; REHEARSAL_SMOKE_QUERIES of the tool's 100
+             queries, the launch counts set to 0 just before and read just
+             after. The result has the JAX tool's keys and finite stage
+             medians; 5,000 landmarks; every query reaches PnP and none
+             raises; the launches are exactly what the refinements'
+             records imply (one forward a database render, a target, a
+             seed, an iteration and each of the guard's two; a backward
+             and a reduction an iteration); the three kernels against
+             their plain versions on database view 0; query 0's SuperPoint
+             and padded decode against the CPU path
+             (REHEARSAL_CPU_LIMITS). Reports the solved count, the
+             database renders' drops, query 0's auction (rounds,
+             unconverged rows, syncs, device busy and idle share), PnP's
+             device memory and the run's peak device memory
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -1479,7 +1501,8 @@ def auction_syncs(sim) -> dict:
     _, n_read = count_syncs(lambda: got.cpu())
     return {"matrix": [R, C], "rounds": rounds[0],
             "blocks": -(-rounds[0] // 20), "round": n_round,
-            "auction": n_auction, "read": n_read, "auction_ms": ms}
+            "auction": n_auction, "read": n_read, "auction_ms": ms,
+            "unconverged": int((got < 0).sum())}
 
 
 def localize_phase(seed: int, device, card: str, n: int = N_GAUSSIANS,
@@ -3079,6 +3102,227 @@ def refine_table_phase(seed: int, device, card: str,
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 17: the query path at reference scale
+# --------------------------------------------------------------------------
+
+# the rehearsal's depth here, of the tool's 100 queries (its recorded runs
+# take 40); everything else at the tool's width
+REHEARSAL_SMOKE_QUERIES = 16
+# the JAX tool's result keys, in its order (tools/eval_rehearsal.py:258-275)
+REHEARSAL_KEYS = ("tool", "n_gaussians", "image", "n_train_views",
+                  "n_queries", "db_render_s_total", "selection_5000_s",
+                  "ms_superpoint", "ms_frustum_snap", "ms_decode",
+                  "ms_hungarian", "ms_pnp", "ms_query_total",
+                  "render_refine_s_steady", "pnp_solved", "finite")
+# query 0 on the card against the port's CPU path: SuperPoint's dense
+# scores (softmax probabilities near 1/65 after eight float32 convs summed
+# in another order, TF32 off) and its descriptors at the key points both
+# keep; the share of the card's valid key points the CPU run does not keep
+# (a swap where two NMS survivors' scores lie within the scores' limit,
+# at the 4,096th place or at the 0.005 threshold); the padded decode
+# (CARD_CPU_LIMITS' decode: bf16 operands after float32 sums)
+REHEARSAL_CPU_LIMITS = {"sp_scores": 1e-5, "sp_desc": 1e-4,
+                        "sp_kp_moved": 1e-3,
+                        "decode": CARD_CPU_LIMITS["decode"]}
+
+
+def superpoint_card_cpu(sp_params, gray: np.ndarray, card_out: dict,
+                        max_keypoints: int) -> dict:
+    """``superpoint.extract`` on the port's CPU path against the card's
+    output on one frame: the dense scores, the valid key points the two
+    keep (as pixel sets) and the descriptors at the common ones."""
+    from splatloc_tpu_torch.match import superpoint
+
+    cpu = superpoint.extract({k: v.cpu() for k, v in sp_params.items()},
+                             torch.from_numpy(gray.astype(np.float32)),
+                             max_keypoints=max_keypoints)
+    card = {k: v.cpu() for k, v in card_out.items()}
+
+    def valid_kps(o):
+        kp = o["keypoints"][o["valid"]].numpy().astype(np.int64)
+        return {tuple(x): i for i, x in
+                zip(np.nonzero(o["valid"].numpy())[0], kp)}
+    kc, kh = valid_kps(card), valid_kps(cpu)
+    common = sorted(set(kc) & set(kh))
+    ic = [kc[x] for x in common]
+    ih = [kh[x] for x in common]
+    desc = (card["descriptors"][:, ic] - cpu["descriptors"][:, ih]).abs()
+    return {"sp_scores": float((card["dense_scores"]
+                                - cpu["dense_scores"]).abs().max()),
+            "sp_desc": float(desc.max()) if common else 0.0,
+            "sp_kp_moved": 1.0 - len(common) / max(len(kc), 1),
+            "sp_valid": [len(kc), len(kh)],
+            "sp_same_order": bool(torch.equal(card["keypoints"],
+                                              cpu["keypoints"]))}
+
+
+def rehearsal_card_extras(q0: dict, K, n_hypotheses: int, device,
+                          info: dict) -> None:
+    """Phase 17's card-only reports on query 0 (into ``info``): its
+    auction's rounds, unconverged rows and host syncs, a device profile of
+    the auction (busy and idle share against its unprofiled wall), and
+    PnP's device memory on the kept matches."""
+    from splatloc_tpu_torch.match import hungarian, pnp
+
+    sim = hungarian._sim_matrix(
+        torch.as_tensor(q0["qf"]["descriptors"], device=device),
+        q0["feats"].T, 0.4)
+    info["auction_q0"] = auction_syncs(sim)
+    synced(device)
+    t0 = time.perf_counter()
+    hungarian.auction_assignment(sim, eps=1e-4)
+    synced(device)
+    info["auction_q0_profile"] = profile(
+        lambda: hungarian.auction_assignment(sim, eps=1e-4),
+        (time.perf_counter() - t0) * 1e3, 1, warm=True)
+    log("rehearsal: query 0's auction " + json.dumps(info["auction_q0"])
+        + "; its profile " + json.dumps(info["auction_q0_profile"]))
+    keep, m = q0["keep"], q0["matches"]
+    q2d = q0["qf"]["keypoints"][m[0][keep]].astype(np.float32)
+    p3d = q0["pts3d"][m[1][keep]].astype(np.float32)
+    synced(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    pnp.solve_pnp_ransac(q2d, p3d, K, n_hypotheses=n_hypotheses,
+                         device=device)
+    info["pnp_q0_peak_mib"] = (torch.cuda.max_memory_allocated(device)
+                               - base) / 2 ** 20
+    log(f"rehearsal: PnP on query 0's {len(keep)} kept matches "
+        f"{info['pnp_q0_peak_mib']:.1f} MiB of device memory past the "
+        f"{base / 2 ** 20:.1f} MiB held")
+
+
+def rehearsal_phase(seed: int, device, card: str,
+                    n_queries: int = REHEARSAL_SMOKE_QUERIES) -> dict:
+    """Phase 17: ``splatloc_tpu_torch.tools.eval_rehearsal`` (its ``run``)
+    at full width (110,000 Gaussians, 640x480, 100 database views, 5,000
+    of 30,000 key Gaussians selected, 4,096 key points, 256 hypotheses,
+    3 refinements of 64 iterations a level) to ``n_queries`` queries,
+    every kernel's launch count set to 0 just before and read just
+    after. Fails unless the result has the
+    JAX tool's keys, finite stage medians, every landmark, every query at
+    PnP with no PnP call raising, the launches the refinements' records
+    imply, the three kernels within their limits on database view 0, and
+    query 0's SuperPoint and decode within REHEARSAL_CPU_LIMITS of the CPU
+    path. Reports the solved count, the database renders' drops, query
+    0's auction (rounds, unconverged rows, syncs, a device profile), PnP's
+    peak memory, the kept matches that are pad rows, and the peak device
+    memory."""
+    from splatloc_tpu_torch.fields.decoder import decode
+    from splatloc_tpu_torch.match import superpoint
+    from splatloc_tpu_torch.tools import eval_rehearsal
+
+    t_phase = time.perf_counter()
+    per_query, q0 = [], {}
+
+    def on_query(qi, rec):
+        row = {"n_real": rec["n_real"], "n_valid": rec["qf"]["n_valid"]}
+        if "matches" in rec:
+            cols = rec["matches"][1][rec["keep"]]
+            row.update(kept=len(cols), kept_pads=int((cols >= rec["n_real"])
+                                                     .sum()),
+                       sims_over=int((rec["sims"] > 0).sum()),
+                       solved=bool(rec["pnp"] and rec["pnp"]["success"]))
+        per_query.append(row)
+        if qi == 0:
+            q0.update(rec)
+
+    synced(device)
+    reset_launches()
+    run = eval_rehearsal.run(n_queries=n_queries, device=device,
+                             on_query=on_query)
+    synced(device)
+    launches = read_launches()
+    res = run.result
+    n_train, n_landmarks = res["n_train_views"], 5000
+    infos = [r["info"] for r in run.refinements]
+    iters = sum(int(lv["iters"]) for i in infos for lv in i["levels"])
+    want = {"fwd_pairwalk": n_train + len(infos) + iters
+            + sum(i["seed_evals"] + 2 for i in infos),
+            "bwd_pairwalk": iters, "seg_reduce": iters}
+    info = {"result": res, "seconds": run.seconds,
+            "peak_mem_gb": run.peak_mem_gb, "landmarks": len(run.landmarks),
+            "pnp_errors": run.pnp_errors,
+            "refinements": [{"seconds": r["seconds"],
+                             "seed_evals": r["info"]["seed_evals"],
+                             "levels": r["info"]["levels"],
+                             "guard_kept_start": r["info"][
+                                 "guard_kept_start"]}
+                            for r in run.refinements],
+            "queries": per_query, "launches": launches,
+            "launches_expected": want}
+    log(f"rehearsal on {card}: " + json.dumps(info))
+    if tuple(res) != REHEARSAL_KEYS:
+        raise AssertionError(f"rehearsal result keys {list(res)}")
+    stats = [k for k in REHEARSAL_KEYS if k.startswith(("ms_", "db_", "sel"))
+             ] + ["render_refine_s_steady"]
+    if not (res["finite"] is True
+            and all(res[k] is not None and np.isfinite(res[k])
+                    for k in stats)):
+        raise AssertionError(f"rehearsal stage medians not finite: {res}")
+    if len(run.landmarks) != n_landmarks:
+        raise AssertionError(f"selection returned {len(run.landmarks)} of "
+                             f"{n_landmarks} landmarks")
+    if (run.pnp_errors or len(per_query) != n_queries
+            or len(run.stages["pnp"]) != n_queries
+            or any(q["n_real"] < 5 for q in per_query)):
+        raise AssertionError(f"a query did not reach PnP or PnP raised: "
+                             f"{run.pnp_errors}, {per_query}")
+    if launches != want:
+        raise AssertionError(f"rehearsal launches {launches}, expected "
+                             f"{want}")
+
+    # drops of the database renders (the tool's raster config), after
+    rcfg = RasterConfig.for_device(device)
+    drops = [drop_counters(run.scene, run.cam0.replace_pose(
+        torch.from_numpy(run.frames[i]["w2c"])), rcfg)
+        for i in range(n_train)]
+    info["db_drops"] = {"views_dropping": sum(any(d) for d in drops),
+                        "pairs_dropped": sum(d[0] for d in drops),
+                        "pairs_truncated": sum(d[1] for d in drops),
+                        "visible_dropped": sum(d[2] for d in drops)}
+    log("rehearsal: database renders' drops " + json.dumps(info["db_drops"]))
+
+    # the kernels against their plain versions on database view 0
+    cam = run.cam0.replace_pose(torch.from_numpy(run.frames[0]["w2c"]))
+    errs, _, n_pairs = kernels_vs_plain(run.scene, cam, seed)
+    info["kernel_errs"] = errs
+    log("rehearsal: kernels vs plain on database view 0 "
+        + json.dumps({**errs, "pairs": n_pairs}))
+
+    # query 0 on the card against the CPU path: SuperPoint, the decode
+    gray0 = run.grays[0]
+    card_out = superpoint.extract(run.sp_params,
+                                  torch.as_tensor(gray0, device=device),
+                                  max_keypoints=q0["qf"]["keypoints"]
+                                  .shape[0])
+    check = superpoint_card_cpu(run.sp_params, gray0, card_out,
+                                q0["qf"]["keypoints"].shape[0])
+    cpu_params = {"table": run.decoder_params["table"].cpu(),
+                  "layers": [w.cpu() for w in
+                             run.decoder_params["layers"]]}
+    feats_cpu = decode(cpu_params, torch.from_numpy(q0["pts3d"]),
+                       run.field_cfg)
+    feats_cpu[q0["n_real"]:] = 0.0
+    check["decode"] = float((q0["feats"].cpu() - feats_cpu).abs().max())
+    info["card_cpu"] = check
+    log("rehearsal: query 0 on the card vs the CPU path " + json.dumps(check)
+        + f" (limits {json.dumps(REHEARSAL_CPU_LIMITS)})")
+    bad = [k for k, lim in REHEARSAL_CPU_LIMITS.items()
+           if not check[k] <= lim]
+    if bad:
+        raise AssertionError(f"query 0 differs from the CPU path on {bad}: "
+                             f"{check}")
+
+    rehearsal_card_extras(q0, run.frames[0]["K"],
+                          eval_rehearsal.N_HYPOTHESES, device, info)
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"rehearsal: {res['pnp_solved']} of {n_queries} PnP solved (random "
+        f"weights); phase wall {info['phase_s']:.1f} s")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3227,10 +3471,15 @@ def main(argv=None) -> int:
     # before, read just after (inside refine_table_phase)
     table = refine_table_phase(args.seed, dev, card)
 
+    # 17. rehearsal: the query path at reference scale, counts set to 0
+    # just before, read just after (inside rehearsal_phase)
+    rehearsal = rehearsal_phase(args.seed, dev, card)
+
     paths = {"serve": launches, "train": train["launches"],
              "localize": loc["launches"], "map": mapped["launches"],
              "protocol": proto["launches"], "dist": sharded["launches"],
-             "gate": gate["launches"], "refine_table": table["launches"]}
+             "gate": gate["launches"], "refine_table": table["launches"],
+             "rehearsal": rehearsal["launches"]}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),
@@ -3238,8 +3487,8 @@ def main(argv=None) -> int:
                                      for n, p in paths.items()}}
 
     # the worst error against the plain version over phases 5, 8, 9, 11,
-    # 12, 13, 15 and 16
-    checked = (train, loc, mapped, proto, gate, table)
+    # 12, 13, 15, 16 and 17
+    checked = (train, loc, mapped, proto, gate, table, rehearsal)
     m["max_abs_err"] = max(m["max_abs_err"],
                            *(p["kernel_errs"]["fwd_pairwalk"]
                              for p in checked))

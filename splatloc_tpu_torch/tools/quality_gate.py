@@ -187,8 +187,6 @@ def run(n_frames: int = 36, n_eval: int = 4, map_iters: int = 2200,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("quality_gate: no CUDA device; pass --device cpu "
                          "to run on the CPU")
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
     t_all = time.perf_counter()
     ckpt_path = os.environ.get("SPLATLOC_GATE_CKPT", str(DEFAULT_CKPT))
     log_path = os.environ.get("SPLATLOC_GATE_LOG", str(DEFAULT_LOG))
@@ -220,6 +218,10 @@ def run(n_frames: int = 36, n_eval: int = 4, map_iters: int = 2200,
     rng = np.random.default_rng(seed)
     gt = make_gt_scene(n_gauss_gt, rng)
     gt_dev = tuple(torch.from_numpy(a).to(dev) for a in gt)
+    if dev.type == "cuda":
+        # after the first allocation: on a device named by index, the
+        # allocator's stats exist only once the context does
+        torch.cuda.reset_peak_memory_stats(dev)
     # ~2.5k gt landmarks for the kp/marker channel
     n_lm = 2500
     landmarks = gt[0][rng.permutation(n_gauss_gt)[:n_lm]]

@@ -844,3 +844,64 @@ def test_sharded_render_of_one_rank_on_card(cuda):
     assert torch.equal(res["sharded"][1], res["single"][1])
     for a, b in zip(res["sharded"][2], res["single"][2]):
         assert torch.allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_eval_rehearsal_on_card_small(cuda):
+    """The rehearsal tool at 64x48 on the card (2 queries, one refinement):
+    finite stage medians, every query at PnP, and each kernel launched
+    exactly as its records imply (a forward a database render, the
+    target, each seed, iteration and guard render; a backward and a
+    reduction an iteration)."""
+    from splatloc_tpu_torch.tools import eval_rehearsal
+
+    kernels = (hopper_raster.fwd_pairwalk, hopper_raster.bwd_pairwalk,
+               hopper_raster.seg_reduce)
+    for k in kernels:
+        k.launches = 0
+    run = eval_rehearsal.run(
+        n_queries=2, device=cuda, W=64, H=48, fx=32.0, n_gauss=2000,
+        capacity=2048, n_train=8, n_key=600, n_landmarks=50, mask_px=600,
+        max_points=256, max_keypoints=128, n_refine=1, refine_iters=4)
+    torch.cuda.synchronize()
+    info = run.refinements[0]["info"]
+    iters = sum(lv["iters"] for lv in info["levels"])
+    assert [k.launches for k in kernels] == [
+        8 + 1 + info["seed_evals"] + iters + 2, iters, iters]
+    res = run.result
+    assert res["finite"] and len(run.stages["pnp"]) == 2
+    assert all(v is not None for k, v in res.items() if k.startswith("ms_"))
+    assert run.pnp_errors == [] and len(run.landmarks) == 50
+
+
+_SMALL_TOOL_RUNS = {
+    "quality_gate": "n_frames=4, n_eval=2, map_iters=8, n_gauss_gt=2000, "
+                    "W=64, H=48, capacity=8192",
+    "eval_rehearsal": "n_queries=1, W=64, H=48, fx=32.0, n_gauss=2000, "
+                      "capacity=2048, n_train=8, n_key=600, n_landmarks=50, "
+                      "mask_px=600, max_points=256, max_keypoints=128, "
+                      "n_refine=1, refine_iters=4",
+}
+
+
+@pytest.mark.parametrize("tool", sorted(_SMALL_TOOL_RUNS))
+def test_tool_runs_on_an_indexed_device_in_a_fresh_process(cuda, tool,
+                                                          tmp_path):
+    """Each reference-scale tool at a small size on ``cuda:0`` in a
+    process that has not touched the card yet: the peak-memory reset comes
+    after the tool's first allocation (before it, the reset raises on a
+    device named by index) and the run reports a peak."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    code = (f"from splatloc_tpu_torch.tools import {tool}\n"
+            f"r = {tool}.run(device='cuda:0', {_SMALL_TOOL_RUNS[tool]})\n"
+            "assert r.peak_mem_gb > 0, r.peak_mem_gb\n")
+    env = {**os.environ, "PYTHONPATH": str(root),
+           "SPLATLOC_GATE_LOG": str(tmp_path / "progress.jsonl"),
+           "SPLATLOC_GATE_CKPT": str(tmp_path / "ckpt.npz")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]

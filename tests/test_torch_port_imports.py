@@ -85,6 +85,7 @@ def test_port_imports_pull_in_no_jax():
                 "splatloc_tpu_torch.data.grad_mask",
                 "splatloc_tpu_torch.tools.quality_gate",
                 "splatloc_tpu_torch.tools.refine_table",
+                "splatloc_tpu_torch.tools.eval_rehearsal",
                 "chip_smoke", "kernel_ab"):
         assert mod in report["imported"], mod
 
