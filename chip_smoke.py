@@ -15,7 +15,8 @@ matching, PnP and render-loss pose refinement); the mapping CLI
 to a replay through every CLI; the multi-GPU layer's sharded render
 and mapping step, with every rank on the card; and the reference-scale
 tools: the full-scale quality gate, the refinement basin table and the
-query path's rehearsal at the size of a real scene.
+query path's rehearsal at the size of a real scene; and the benchmark and
+profiling programs.
 Phases:
 
 1. device    a CUDA device is required (no CPU fallback); prints its name
@@ -171,6 +172,27 @@ Phases:
              database renders' drops, query 0's auction (rounds,
              unconverged rows, syncs, device busy and idle share), PnP's
              device memory and the run's peak device memory
+18. bench    the benchmark and profiling tools
+             (``splatloc_tpu_torch.tools.{bench,bench_pose,bench_refine,
+             profile_bench,profile_chain,profile_map}``, the counterparts
+             of ``bench.py``, ``bench_pose.py``,
+             ``tools/bench_refine.py`` and ``tools/profile_*.py``) through
+             their ``run``/``main`` at full width, each with the launch
+             counts set to 0 just before and read just after: bench's stages A (320x240, 30,000), B and C
+             (640x480, 100,000; C with probe-sized caps) at 100 gradient
+             steps each, bench_pose's 50 twist steps, bench_refine's
+             refinement from 5 cm / 5 deg (1 of its 5 seeds), profile_bench
+             and profile_chain at PROFILE_ITERS steps, profile_map's trainer
+             at 130,000 alive for 1 + 6 + 6 steps. Each line has the JAX
+             program's keys and finite numbers; bench's stages drop no pair;
+             the launches are exactly each tool's renders; the three kernels
+             against their plain versions on profile_map's last keyframe
+             view (random-depth keyframes and the random fill); a 64x48
+             bench step on the card against the CPU path
+             (BENCH_CPU_LIMITS). Reports the lines, bench's stages, the
+             drops at default caps of bench_pose's and bench_refine's
+             targets and profile_map's keyframe views, and profile_chain's
+             device busy and idle ms with its largest gaps
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -3323,6 +3345,268 @@ def rehearsal_phase(seed: int, device, card: str,
     return info
 
 
+# --------------------------------------------------------------------------
+# phase 18: the benchmark and profiling programs
+# --------------------------------------------------------------------------
+
+# each tool's depth here: bench's 100 iterations a stage, bench_pose's 50
+# and profile_map's 6 steps are the tools' own; bench_refine 1 of its 5
+# seeds; profile_bench and profile_chain 6 iterations (their own 6 and 10)
+BENCH_ITERS = 100
+POSE_ITERS = 50
+BENCH_REFINE_SEEDS = 1
+PROFILE_ITERS = 6
+MAP_PROFILE_ALIVE = 130_000
+MAP_PROFILE_ITERS = 6
+# the JAX programs' result keys, in their order (bench.py:370,
+# bench_pose.py:59-64, tools/bench_refine.py:86-99,
+# tools/profile_bench.py:125-131, tools/profile_chain.py:177-183,
+# tools/profile_map.py:100-127)
+BENCH_KEYS = {
+    "bench": ("metric", "value", "unit", "vs_baseline"),
+    "bench_pose": ("metric", "value", "unit", "vs_baseline"),
+    "bench_refine": ("metric", "median_t_cm", "median_r_deg", "start_t_cm",
+                     "start_r_deg", "t_reduction_x", "r_reduction_x",
+                     "iters_per_s", "n_seeds"),
+    "profile_bench": ("tool", "ms_per_iter", "mpix_s", "device_op_ms",
+                      "device_idle_ms"),
+    "profile_chain": ("tool", "ms_per_iter", "mpix_s", "device_busy_ms",
+                      "device_idle_ms"),
+    "profile_map": ("tool", "ms_per_step", "it_s", "n_alive", "capacity",
+                    "device_op_ms"),
+}
+# the 64x48 bench step on the card against the CPU path: the render
+# limit on the loss, the gradient limit (relative L2) on each of the five
+# gradients, float32 slabs on both (as the card tests hold rasterize)
+BENCH_CPU_LIMITS = {"loss": 5e-5, "grad_rel_l2": 1e-3}
+
+
+def each_kernel(n: int) -> dict:
+    return {"fwd_pairwalk": n, "bwd_pairwalk": n, "seg_reduce": n}
+
+
+def check_line(name: str, line: dict) -> None:
+    """The JAX program's keys in their order and every number finite
+    (bench_pose's vs_baseline is the JAX program's null)."""
+    if tuple(line) != BENCH_KEYS[name]:
+        raise AssertionError(f"{name} line keys {list(line)}")
+    for k, v in line.items():
+        if name == "bench_pose" and k == "vs_baseline":
+            if v is not None:
+                raise AssertionError(f"bench_pose vs_baseline {v}")
+        elif not isinstance(v, str) and not (v is not None
+                                             and np.isfinite(v)):
+            raise AssertionError(f"{name} {k} not finite: {line}")
+
+
+def bench_card_cpu(device) -> dict:
+    """One 64x48 ``bench`` step (2,000 Gaussians) on the card against the
+    port's CPU path: the loss and the five gradients."""
+    from splatloc_tpu_torch.tools import bench
+
+    old = hopper_raster.GRAD_SLAB_DTYPE
+    hopper_raster.GRAD_SLAB_DTYPE = torch.float32
+    try:
+        res = {}
+        for dev in ("cpu", device):
+            cam, args, tgt = bench.make_inputs(48, 64, 2000, dev)
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            loss = bench.loss_fn(leaves, cam, bench.bench_config(), tgt)
+            grads = torch.autograd.grad(loss, leaves)
+            res[str(dev)] = (float(loss.detach()), [g.cpu() for g in grads])
+    finally:
+        hopper_raster.GRAD_SLAB_DTYPE = old
+    (lc, gc), (lh, gh) = res[str(device)], res["cpu"]
+    d = {"loss": abs(lc - lh), "grad_rel_l2": max(
+        rel_l2(a, b) for a, b in zip(gc, gh))}
+    if not all(bool(torch.isfinite(g).all()) for g in gc):
+        raise AssertionError("the card's bench gradients are not finite")
+    bad = [k for k, lim in BENCH_CPU_LIMITS.items() if not d[k] <= lim]
+    log("bench: the 64x48 step on the card vs the CPU path "
+        + json.dumps(d) + f" (limits {json.dumps(BENCH_CPU_LIMITS)})")
+    if bad:
+        raise AssertionError(f"the bench step differs from the CPU path on "
+                             f"{bad}: {d}")
+    return d
+
+
+def refine_sized_caps(sc, device) -> dict:
+    """bench_refine's seed 0 on its scene with the pair array sized for the
+    target view (no pair dropped), beside the tool's default caps, whose
+    target drops pairs (ROADMAP C)."""
+    from splatloc_tpu_torch.match.localize import refine_pose
+    from splatloc_tpu_torch.tools import bench_refine
+
+    cam = bench_refine.camera(WIDTH, HEIGHT, device)
+    cfg = size_pair_array(sc, [cam], RasterConfig.for_device(device))
+    with torch.no_grad():
+        gt = render(sc, cam, cfg)["render"]
+    w2c0 = transforms.se3_exp(torch.from_numpy(
+        bench_refine.start_twist(0)).to(device)).cpu().numpy()
+    dxi, info = refine_pose(sc, cam, w2c0, gt, iters=100, raster_cfg=cfg)
+    w2c1 = (transforms.se3_exp(dxi)
+            @ torch.from_numpy(w2c0).to(device)).cpu().numpy()
+    t, r = bench_refine._pose_err(w2c1, np.eye(4))
+    return {"target_drops": drop_counters(sc, cam, cfg), "t_cm": t * 100,
+            "r_deg": r, "iters": int(info["iters"]),
+            "guard_kept_start": info["guard_kept_start"]}
+
+
+def bench_phase(seed: int, device, card: str) -> dict:
+    """Phase 18: the six benchmark and profiling tools through their
+    ``run``/``main`` at full width, each with every kernel's launch count
+    set to 0 just before and read just after; fails unless each line has
+    the JAX program's keys and finite numbers, bench's stages dropped no
+    pair, the launches are exactly the renders each tool issues, the three
+    kernels agree with their plain versions on profile_map's trainer view,
+    and the 64x48 bench step on the card agrees with the CPU path."""
+    from splatloc_tpu_torch.tools import (bench, bench_pose, bench_refine,
+                                          profile_bench, profile_chain,
+                                          profile_map)
+
+    t_phase = time.perf_counter()
+    info, launches = {}, {}
+
+    def counted(name, fn):
+        synced(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        synced(device)
+        launches[name] = read_launches()
+        info[name] = {"wall_s": time.perf_counter() - t0,
+                      "launches": launches[name]}
+        return out
+
+    def expect(name, want):
+        info[name]["launches_expected"] = want
+        if launches[name] != want:
+            raise AssertionError(f"{name} launches {launches[name]}, "
+                                 f"expected {want}")
+
+    def report(name, line):
+        check_line(name, line)
+        info[name]["line"] = line
+        log(f"bench: {name} on {card}: {json.dumps(line)}")
+
+    # bench: stages A, B and C; per stage a first step, a drop check (a
+    # forward), a warm step and BENCH_ITERS steps
+    b = counted("bench", lambda: bench.run(device=device, iters=BENCH_ITERS))
+    report("bench", {k: b["result"][k] for k in bench.RESULT_KEYS})
+    info["bench"].update(stages=b["stages"], kept=b["result"]["stage"])
+    log("bench: stages " + json.dumps(b["stages"]))
+    if any(r["n_dropped"] for r in b["stages"].values()):
+        raise AssertionError(f"a bench stage dropped pairs: {b['stages']}")
+    n = len(bench.STAGES)
+    expect("bench", {"fwd_pairwalk": n * (3 + BENCH_ITERS),
+                     "bwd_pairwalk": n * (2 + BENCH_ITERS),
+                     "seg_reduce": n * (2 + BENCH_ITERS)})
+
+    # bench_pose: the target, a warm step and POSE_ITERS steps
+    p = counted("bench_pose", lambda: bench_pose.run(device=device,
+                                                     iters=POSE_ITERS))
+    report("bench_pose", p["result"])
+    info["bench_pose"]["target_drops"] = p["drops"]
+    expect("bench_pose", {"fwd_pairwalk": 2 + POSE_ITERS,
+                          "bwd_pairwalk": 1 + POSE_ITERS,
+                          "seg_reduce": 1 + POSE_ITERS})
+
+    # bench_refine: the target, then per seed refine_pose's renders (a
+    # forward a seed, an iteration and each of the guard's two; a
+    # backward and a reduction an iteration)
+    seeds = []
+    r = counted("bench_refine", lambda: bench_refine.main(
+        BENCH_REFINE_SEEDS, device=device,
+        on_seed=lambda s, rec: seeds.append(rec["info"])))
+    report("bench_refine", r)
+    iters = [int(i["iters"]) for i in seeds]
+    if iters != [sum(lv["iters"] for lv in i["levels"]) for i in seeds]:
+        raise AssertionError(f"refine_pose's iterations {seeds}")
+    expect("bench_refine", {
+        "fwd_pairwalk": 1 + sum(i["seed_evals"] + 2 for i in seeds)
+        + sum(iters), "bwd_pairwalk": sum(iters),
+        "seg_reduce": sum(iters)})
+    sc = bench_refine.make_scene(100_000, device)
+    info["bench_refine"]["target_drops"] = drop_counters(
+        sc, bench_refine.camera(WIDTH, HEIGHT, device),
+        RasterConfig.for_device(device))
+    info["bench_refine"]["sized_caps_seed0"] = refine_sized_caps(sc, device)
+    log("bench: bench_refine's seed 0 with a pair array sized for the "
+        "target (outside the counted run) "
+        + json.dumps(info["bench_refine"]["sized_caps_seed0"]))
+    del sc
+
+    # profile_bench: a first step, a warm step, PROFILE_ITERS timed and
+    # PROFILE_ITERS traced
+    pb = counted("profile_bench", lambda: profile_bench.run(
+        PROFILE_ITERS, device=device))
+    report("profile_bench", pb["result"])
+    info["profile_bench"]["gaps"] = pb["summary"]["gaps"][:6]
+    expect("profile_bench", each_kernel(2 + 2 * PROFILE_ITERS))
+
+    # profile_chain: a first step, a drop check, a warm step, then
+    # PROFILE_ITERS timed and PROFILE_ITERS traced
+    pc = counted("profile_chain", lambda: profile_chain.run(
+        PROFILE_ITERS, device=device))
+    report("profile_chain", pc["result"])
+    info["profile_chain"].update(gaps=pc["summary"]["gaps"][:6],
+                                 pair_need=pc["pair_need"])
+    log(f"bench: profile_chain device busy "
+        f"{pc['summary']['busy_ms']} ms, idle {pc['summary']['idle_ms']} ms "
+        f"an iteration; largest gaps {json.dumps(pc['summary']['gaps'][:6])}")
+    expect("profile_chain", {"fwd_pairwalk": 3 + 2 * PROFILE_ITERS,
+                             "bwd_pairwalk": 2 + 2 * PROFILE_ITERS,
+                             "seg_reduce": 2 + 2 * PROFILE_ITERS})
+
+    # profile_map: map(1), map(MAP_PROFILE_ITERS) timed and traced, each
+    # step a window of renders
+    pm = counted("profile_map", lambda: profile_map.run(
+        MAP_PROFILE_ALIVE, MAP_PROFILE_ITERS, device=device))
+    report("profile_map", pm["result"])
+    trainer = pm["trainer"]
+    expect("profile_map", each_kernel(trainer.cfg.window_size
+                                      * (1 + 2 * MAP_PROFILE_ITERS)))
+    rcfg = trainer.cfg.raster_config()
+    views = [trainer.camera.replace_pose(trainer.frames.w2c[i])
+             for i in range(trainer.frames.n)]
+    drops = [drop_counters(trainer.scene, cam, rcfg) for cam in views]
+    info["profile_map"].update(
+        visible_cap=trainer.cfg.visible_cap,
+        pair_cap_override=trainer.cfg.pair_cap_override,
+        alive=int(trainer.scene.num_alive), keyframe_drops=drops,
+        top_ops=pm["summary"]["ops"][:8])
+    log("bench: drops (n_dropped, n_trunc, n_vis_dropped) at default caps: "
+        f"bench_pose's target {info['bench_pose']['target_drops']}, "
+        f"bench_refine's target {info['bench_refine']['target_drops']}, "
+        f"profile_map's keyframe views {drops}")
+
+    # the kernels against their plain versions on profile_map's last
+    # keyframe view of the filled scene, under the trainer's caps
+    with torch.no_grad():
+        walk_args, C, pr = walk_inputs(trainer.scene, views[-1], rcfg)
+        got = hopper_raster.fwd_pairwalk(*walk_args, C, rcfg)
+        ref = hopper_raster.fwd_pairwalk_plain(*walk_args, C, rcfg)
+        synced(device)
+        mf = compare_walk(got, ref, C)
+        _, _, _, errs = check_backward(walk_args, got, pr, C, rcfg, seed,
+                                       trainer.cfg.width, trainer.cfg.height)
+    errs = {"fwd_pairwalk": mf["max_abs_err"], **errs}
+    log("bench: kernels vs plain on profile_map's view "
+        + json.dumps({**errs, "pairs": int(walk_args[2].sum()),
+                      "pair_array": int(walk_args[0].shape[1])}))
+    del trainer, pm, walk_args, got, ref
+
+    info["card_cpu"] = bench_card_cpu(device)
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("fwd_pairwalk", "bwd_pairwalk", "seg_reduce")}
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"bench: phase wall {info['phase_s']:.1f} s; tool walls "
+        + json.dumps({k: round(v["wall_s"], 2) for k, v in info.items()
+                      if isinstance(v, dict) and "wall_s" in v}))
+    return {"launches": total, "kernel_errs": errs, "info": info,
+            "phase_s": info["phase_s"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3475,11 +3759,16 @@ def main(argv=None) -> int:
     # just before, read just after (inside rehearsal_phase)
     rehearsal = rehearsal_phase(args.seed, dev, card)
 
+    # 18. bench: the benchmark and profiling tools at full width, counts
+    # set to 0 just before, read just after each tool (inside bench_phase)
+    benched = bench_phase(args.seed, dev, card)
+
     paths = {"serve": launches, "train": train["launches"],
              "localize": loc["launches"], "map": mapped["launches"],
              "protocol": proto["launches"], "dist": sharded["launches"],
              "gate": gate["launches"], "refine_table": table["launches"],
-             "rehearsal": rehearsal["launches"]}
+             "rehearsal": rehearsal["launches"],
+             "bench": benched["launches"]}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),
@@ -3487,8 +3776,8 @@ def main(argv=None) -> int:
                                      for n, p in paths.items()}}
 
     # the worst error against the plain version over phases 5, 8, 9, 11,
-    # 12, 13, 15, 16 and 17
-    checked = (train, loc, mapped, proto, gate, table, rehearsal)
+    # 12, 13, 15, 16, 17 and 18
+    checked = (train, loc, mapped, proto, gate, table, rehearsal, benched)
     m["max_abs_err"] = max(m["max_abs_err"],
                            *(p["kernel_errs"]["fwd_pairwalk"]
                              for p in checked))

@@ -905,3 +905,58 @@ def test_tool_runs_on_an_indexed_device_in_a_fresh_process(cuda, tool,
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+# each benchmark or profiling tool's main at a small size, and the keys of
+# the JAX program's result line in their order
+_BENCH_TOOL_RUNS = {
+    "bench": ("device='cuda:0', iters=3, stages=(('small', 48, 64, 2000, "
+              "True, True),)", ("metric", "value", "unit", "vs_baseline")),
+    "bench_pose": ("device='cuda:0', iters=3, H=48, W=64, N=2000",
+                   ("metric", "value", "unit", "vs_baseline")),
+    "bench_refine": ("1, N=20000, W=48, H=32, device='cuda:0'",
+                     ("metric", "median_t_cm", "median_r_deg", "start_t_cm",
+                      "start_r_deg", "t_reduction_x", "r_reduction_x",
+                      "iters_per_s", "n_seeds")),
+    "profile_bench": ("2, device='cuda:0', H=48, W=64, N=2000",
+                      ("tool", "ms_per_iter", "mpix_s", "device_op_ms",
+                       "device_idle_ms")),
+    "profile_chain": ("2, device='cuda:0', H=48, W=64, N=2000",
+                      ("tool", "ms_per_iter", "mpix_s", "device_busy_ms",
+                       "device_idle_ms")),
+    "profile_map": ("20000, 2, device='cuda:0', W=64, H=48, fx=32.0",
+                    ("tool", "ms_per_step", "it_s", "n_alive", "capacity",
+                     "device_op_ms")),
+}
+
+
+@pytest.mark.parametrize("tool", sorted(_BENCH_TOOL_RUNS))
+def test_bench_tool_prints_one_line_on_card(cuda, tool):
+    """Each benchmark and profiling tool at a small size on ``cuda:0`` in a
+    fresh process: exactly one JSON line on stdout, with the JAX
+    program's keys in their order and finite numbers (the profile tools'
+    device times measured, not None)."""
+    import json
+    import math
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    call, keys = _BENCH_TOOL_RUNS[tool]
+    code = (f"from splatloc_tpu_torch.tools import {tool}\n"
+            f"{tool}.main({call})\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          env={**os.environ, "PYTHONPATH": str(root)},
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, proc.stdout
+    line = json.loads(lines[0])
+    assert tuple(line) == keys
+    for k, v in line.items():
+        if tool == "bench_pose" and k == "vs_baseline":
+            assert v is None                # the JAX program's null
+        elif not isinstance(v, str):
+            assert v is not None and math.isfinite(v), (k, line)

@@ -86,6 +86,12 @@ def test_port_imports_pull_in_no_jax():
                 "splatloc_tpu_torch.tools.quality_gate",
                 "splatloc_tpu_torch.tools.refine_table",
                 "splatloc_tpu_torch.tools.eval_rehearsal",
+                "splatloc_tpu_torch.tools.bench",
+                "splatloc_tpu_torch.tools.bench_pose",
+                "splatloc_tpu_torch.tools.bench_refine",
+                "splatloc_tpu_torch.tools.profile_bench",
+                "splatloc_tpu_torch.tools.profile_chain",
+                "splatloc_tpu_torch.tools.profile_map",
                 "chip_smoke", "kernel_ab"):
         assert mod in report["imported"], mod
 
@@ -113,10 +119,22 @@ def test_port_source_imports_no_jax(path):
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
 
 
+# the port's tools whose JAX programs sit at the repo's root, not in its
+# tools/
+ROOT_PROGRAMS = {"tools/bench.py": "bench.py",
+                 "tools/bench_pose.py": "bench_pose.py"}
+# the repo's benchmark and profiling programs, each with its counterpart in
+# the port's tools/
+BENCH_PROGRAMS = ("bench.py", "bench_pose.py", "tools/bench_refine.py",
+                  "tools/profile_bench.py", "tools/profile_chain.py",
+                  "tools/profile_map.py")
+
+
 def test_port_mirrors_reference_module_paths():
     """Each ported module has one counterpart at the same path in the JAX
     package (hopper_raster stands for pallas_raster); the port's tools
-    have theirs in the repo's tools/."""
+    have theirs in the repo's tools/, or at its root where ROOT_PROGRAMS
+    says so."""
     ref = ROOT / "splatloc_tpu"
     for p in PKG.rglob("*.py"):
         rel = p.relative_to(PKG)
@@ -126,9 +144,21 @@ def test_port_mirrors_reference_module_paths():
                               "core/precision.py", "tools/__init__.py"):
             continue                     # port-only glue, no counterpart
         if rel.parts[0] == "tools":
-            assert (ROOT / rel).exists(), rel
+            assert (ROOT / ROOT_PROGRAMS.get(rel.as_posix(),
+                                             rel.as_posix())).exists(), rel
             continue
         assert (ref / rel).exists(), rel
+
+
+def test_every_bench_program_has_its_port():
+    """Each of the repo's benchmark and profiling programs exists and has
+    its counterpart module in the port's tools/."""
+    to_port = {v: k for k, v in ROOT_PROGRAMS.items()}
+    for prog in BENCH_PROGRAMS:
+        assert (ROOT / prog).exists(), prog
+        port = PKG / to_port.get(prog, prog)
+        assert port.exists(), prog
+        assert port.parent == PKG / "tools", port
 
 
 def test_every_reference_module_is_ported():
