@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from splatloc_tpu_torch.core.precision import full_float32
+from splatloc_tpu_torch.utils.profiling import count, span
 
 NEG = -1e9
 
@@ -91,6 +92,10 @@ def auction_assignment(sim: torch.Tensor, eps: float = 1e-3,
         done += min(block, n_iters - done)
         if not bool((col_of_row < 0).any()):
             break
+    # the rounds issued: whole blocks of ``block`` (convergence is read
+    # once a block), so it moves only when a query needs a block more or
+    # fewer
+    count("match.auction_rounds", done)
     return col_of_row
 
 
@@ -145,18 +150,21 @@ def hungarian_solve(desc1, desc2, sim_thresh: float = 0.4, eps: float = 1e-4,
         matches = np.stack([row, col], axis=0)
         return matches, sim[row, col]
 
-    sim = _sim_matrix(torch.as_tensor(desc1, dtype=torch.float32,
-                                      device=device),
-                      torch.as_tensor(desc2, dtype=torch.float32,
-                                      device=device), sim_thresh)
+    with span("match.similarity"):
+        sim = _sim_matrix(torch.as_tensor(desc1, dtype=torch.float32,
+                                          device=device),
+                          torch.as_tensor(desc2, dtype=torch.float32,
+                                          device=device), sim_thresh)
     if sim.shape[0] <= sim.shape[1]:
-        col_t = auction_assignment(sim, eps=eps)
+        with span("match.auction"):
+            col_t = auction_assignment(sim, eps=eps)
         sims = _gather_wrapped(sim, col_t).cpu().numpy()
         col = col_t.cpu().numpy()
         row = np.arange(sim.shape[0])
     else:
         simT = sim.T
-        row_t = auction_assignment(simT, eps=eps)
+        with span("match.auction"):
+            row_t = auction_assignment(simT, eps=eps)
         sims = _gather_wrapped(simT, row_t).cpu().numpy()
         row = row_t.cpu().numpy()
         col = np.arange(sim.shape[1])

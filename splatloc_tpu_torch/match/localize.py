@@ -29,6 +29,7 @@ from splatloc_tpu_torch.fields import FeatureFieldConfig, decode
 from splatloc_tpu_torch.match import frustum, hungarian, pnp
 from splatloc_tpu_torch.raster import render
 from splatloc_tpu_torch.raster.types import RasterConfig
+from splatloc_tpu_torch.utils.profiling import span
 
 
 def load_retrieval_table(path: str) -> dict:
@@ -88,6 +89,32 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+_STAGE_SPANS = {n: f"localize.{n}"
+                for n in ("frustum", "decode", "match", "pnp", "refine")}
+
+
+class _Stage:
+    """One stage of a query: times its block to the device's end of its
+    work into the Localizer's ``last_stages[name]``; with tracing on, the
+    block is also the span ``localize.<name>``."""
+    __slots__ = ("loc", "name", "span", "t0")
+
+    def __init__(self, loc: "Localizer", name: str):
+        self.loc = loc
+        self.name = name
+
+    def __enter__(self):
+        self.span = span(_STAGE_SPANS[self.name])
+        self.span.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, kind, *exc):
+        if kind is None:
+            _sync(self.loc.device)
+            self.loc.last_stages[self.name] = time.perf_counter() - self.t0
+        return self.span.__exit__(kind, *exc)
+
+
 class Localizer:
     def __init__(self, scene, decoder_params, field_cfg: FeatureFieldConfig,
                  train_dataset, retrieval_table: dict,
@@ -120,39 +147,36 @@ class Localizer:
         # synchronised wall seconds of each stage of the last query
         self.last_stages: dict = {}
 
-    def _stage(self, name: str, t0: float) -> float:
-        _sync(self.device)
-        t = time.perf_counter()
-        self.last_stages[name] = t - t0
-        return t
+    def _stage(self, name: str) -> "_Stage":
+        return _Stage(self, name)
 
     # -- db-side 3D keypoints + descriptors ----------------------------
 
     def get_frustum_points(self, db_frame: dict):
         """Reference get_frusm_pts (test.py:247-285). The descriptors
         [P, 256] stay on the device for the matching."""
-        t0 = time.perf_counter()
         ds = self.train_dataset
-        if self.subset_xyz is not None:
-            pts3d, pts2d = frustum.frustum_key_points(
-                self.subset_xyz, None, db_frame["w2c"], ds.K,
-                ds.width, ds.height, subset=True, device=self.device)
-        else:
-            pts3d, pts2d = frustum.frustum_key_points(
-                self.xyz, self.marker, db_frame["w2c"], ds.K,
-                ds.width, ds.height,
-                db_mask=np.asarray(db_frame["sp_kp_mask"]) == 1,
-                db_depth=np.asarray(db_frame["depth"]),
-                c2w=db_frame["c2w"], marker_thresh=self.marker_thresh,
-                device=self.device)
-        t0 = self._stage("frustum", t0)
+        with self._stage("frustum"):
+            if self.subset_xyz is not None:
+                pts3d, pts2d = frustum.frustum_key_points(
+                    self.subset_xyz, None, db_frame["w2c"], ds.K,
+                    ds.width, ds.height, subset=True, device=self.device)
+            else:
+                pts3d, pts2d = frustum.frustum_key_points(
+                    self.xyz, self.marker, db_frame["w2c"], ds.K,
+                    ds.width, ds.height,
+                    db_mask=np.asarray(db_frame["sp_kp_mask"]) == 1,
+                    db_depth=np.asarray(db_frame["depth"]),
+                    c2w=db_frame["c2w"], marker_thresh=self.marker_thresh,
+                    device=self.device)
         if pts3d.shape[0] == 0:
             return pts3d, torch.zeros((0, self.field_cfg.final_dim),
                                       device=self.device), pts2d
-        feats = decode(self.decoder_params,
-                       torch.as_tensor(np.asarray(pts3d, np.float32),
-                                       device=self.device), self.field_cfg)
-        self._stage("decode", t0)
+        with self._stage("decode"):
+            feats = decode(self.decoder_params,
+                           torch.as_tensor(np.asarray(pts3d, np.float32),
+                                           device=self.device),
+                           self.field_cfg)
         return pts3d, feats, pts2d
 
     # -- per-query ------------------------------------------------------
@@ -165,38 +189,39 @@ class Localizer:
         self.last_stages = {}
         t_start = time.perf_counter()
         try:
-            return self._localize(query_frame, query_name)
+            with span("localize.query", query=query_name):
+                return self._localize(query_frame, query_name)
         finally:
             self.last_stages["total"] = time.perf_counter() - t_start
 
     def _localize(self, query_frame: dict, query_name: str):
         t_start = time.perf_counter()
-        names = self.retrieval_table[query_name]
-        db_index = self.train_dataset.name_to_index(names[0])
-        db_frame = self.train_dataset.get_frame(db_index)
+        with span("localize.retrieval"):
+            names = self.retrieval_table[query_name]
+            db_index = self.train_dataset.name_to_index(names[0])
+            db_frame = self.train_dataset.get_frame(db_index)
 
-        retrieval_ret = {"r": db_frame["c2w"][:3, :3],
-                         "t": db_frame["c2w"][:3, 3]}
+            retrieval_ret = {"r": db_frame["c2w"][:3, :3],
+                             "t": db_frame["c2w"][:3, 3]}
         self.last_stages["retrieval"] = time.perf_counter() - t_start
 
         db_kps_3d, db_feats_3d, db_kps_2d = self.get_frustum_points(db_frame)
         if db_kps_3d.shape[0] < 5:
             return retrieval_ret, {**retrieval_ret, "success": False}
 
-        t0 = time.perf_counter()
-        qf = self.query_features(query_name)
-        matches, sims = hungarian.hungarian_solve(
-            qf["descriptors"], db_feats_3d.T, sim_thresh=self.sim_thresh,
-            device=self.device)
-        q2d = qf["keypoints"][matches[0]]
-        p3d = db_kps_3d[matches[1]]
-        t0 = self._stage("match", t0)
+        with self._stage("match"):
+            qf = self.query_features(query_name)
+            matches, sims = hungarian.hungarian_solve(
+                qf["descriptors"], db_feats_3d.T, sim_thresh=self.sim_thresh,
+                device=self.device)
+            q2d = qf["keypoints"][matches[0]]
+            p3d = db_kps_3d[matches[1]]
 
-        ret = pnp.solve_pnp_ransac(q2d.astype(np.float32),
-                                   p3d.astype(np.float32), self.eval_K,
-                                   inlier_px=self.inlier_px,
-                                   device=self.device)
-        t0 = self._stage("pnp", t0)
+        with self._stage("pnp"):
+            ret = pnp.solve_pnp_ransac(q2d.astype(np.float32),
+                                       p3d.astype(np.float32), self.eval_K,
+                                       inlier_px=self.inlier_px,
+                                       device=self.device)
         if self.save_match_dir is not None:
             # per-query 2D-3D match dump for visualization/debug
             # (reference test.py:358-368)
@@ -215,8 +240,8 @@ class Localizer:
         if self.refine_with_render_loss and "rgb" in query_frame:
             match_ret = {**match_ret, "pnp_r": match_ret["r"],
                          "pnp_t": match_ret["t"]}
-            match_ret = self.render_refine(match_ret, query_frame)
-            self._stage("refine", t0)
+            with self._stage("refine"):
+                match_ret = self.render_refine(match_ret, query_frame)
         return retrieval_ret, match_ret
 
     # -- render-loss 6-DoF refinement -----------------------------------

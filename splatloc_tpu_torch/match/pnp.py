@@ -25,6 +25,7 @@ from torch.func import jacfwd, vmap
 
 from splatloc_tpu_torch.core import transforms
 from splatloc_tpu_torch.core.precision import full_float32
+from splatloc_tpu_torch.utils.profiling import span
 
 
 def _dlt_pose(pts2d_n: torch.Tensor, pts3d: torch.Tensor):
@@ -114,27 +115,31 @@ def _solve_core(pts2d_n, pts3d, valid, priorities, inlier_thresh_n: float,
     """RANSAC over ``priorities`` [n_hypotheses, M] (one uniform draw per
     hypothesis and point: each hypothesis samples its ``sample_size``
     highest-priority valid points). Returns (R, t, inliers [M], count)."""
-    pri = priorities + torch.where(valid, 0.0, -10.0)
-    idx = torch.topk(pri, sample_size, dim=1).indices        # [B, S]
-    R, t, ok = _dlt_pose(pts2d_n[idx], pts3d[idx])
+    with span("pnp.hypotheses"):
+        pri = priorities + torch.where(valid, 0.0, -10.0)
+        idx = torch.topk(pri, sample_size, dim=1).indices    # [B, S]
+        R, t, ok = _dlt_pose(pts2d_n[idx], pts3d[idx])
     # near-minimal DLT amplifies pixel noise badly, so refine EVERY
     # hypothesis on its loose-inlier support, then score the refined pose
     # at the true threshold
-    err = _reproj_errors(R, t, pts2d_n, pts3d)               # [B, M]
-    w = ((err < 3.0 * inlier_thresh_n) & valid).to(torch.float32)
-    R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, 5)
-    err = _reproj_errors(R, t, pts2d_n, pts3d)
-    inl = (err < inlier_thresh_n) & valid
-    score = torch.where(ok & torch.isfinite(t).all(1), inl.sum(1),
-                        torch.full_like(inl.sum(1), -1))
-    best = torch.argmax(score)
-    R, t = R[best:best + 1], t[best:best + 1]
+    with span("pnp.refine_hypotheses"):
+        err = _reproj_errors(R, t, pts2d_n, pts3d)           # [B, M]
+        w = ((err < 3.0 * inlier_thresh_n) & valid).to(torch.float32)
+        R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, 5)
+    with span("pnp.score"):
+        err = _reproj_errors(R, t, pts2d_n, pts3d)
+        inl = (err < inlier_thresh_n) & valid
+        score = torch.where(ok & torch.isfinite(t).all(1), inl.sum(1),
+                            torch.full_like(inl.sum(1), -1))
+        best = torch.argmax(score)
+        R, t = R[best:best + 1], t[best:best + 1]
     # final local optimization on the winner's strict inliers
-    err = _reproj_errors(R, t, pts2d_n, pts3d)
-    w = ((err < inlier_thresh_n) & valid).to(torch.float32)
-    R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, refine_iters)
-    err2 = _reproj_errors(R, t, pts2d_n, pts3d)
-    inl2 = ((err2 < inlier_thresh_n) & valid)[0]
+    with span("pnp.refine_final"):
+        err = _reproj_errors(R, t, pts2d_n, pts3d)
+        w = ((err < inlier_thresh_n) & valid).to(torch.float32)
+        R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, refine_iters)
+        err2 = _reproj_errors(R, t, pts2d_n, pts3d)
+        inl2 = ((err2 < inlier_thresh_n) & valid)[0]
     return R[0], t[0], inl2, inl2.sum()
 
 
@@ -171,14 +176,17 @@ def solve_pnp_ransac(pts2d: np.ndarray, pts3d: np.ndarray, K: np.ndarray,
         torch.as_tensor(valid, device=device),
         torch.as_tensor(priorities, dtype=torch.float32, device=device),
         thresh_n, sample_size, refine_iters)
-    n_inl = int(n_inl)
-    inl = inl.cpu().numpy()
+    # the host's first wait on the device's PnP work
+    with span("pnp.readback"):
+        n_inl = int(n_inl)
+        inl = inl.cpu().numpy()
+        if n_inl >= min_inliers:
+            Rw2c = R.cpu().numpy()
+            tw2c = t.cpu().numpy()
     if n_inl < min_inliers:
         return {"success": False, "r": None, "t": None,
                 "num_inliers": n_inl, "inliers": inl}
     # w2c -> c2w like the reference
-    Rw2c = R.cpu().numpy()
-    tw2c = t.cpu().numpy()
     Rc2w = Rw2c.T
     tc2w = -Rc2w @ tw2c
     return {"success": True, "r": Rc2w, "t": tc2w,

@@ -27,6 +27,7 @@ from splatloc_tpu_torch.raster.types import RasterConfig
 from splatloc_tpu_torch.scene import densify, init_rgbd, optim
 from splatloc_tpu_torch.scene.gaussians import GaussianScene
 from splatloc_tpu_torch.train import losses
+from splatloc_tpu_torch.utils.profiling import count, span
 
 
 class FrameStore:
@@ -257,55 +258,63 @@ def make_mapping_step(cfg: MappingConfig):
 
     def step_fn(scene: GaussianScene, opt_state: optim.AdamState,
                 stats: densify.DensifyStats, frames: dict, step):
-        M = scene.capacity
-        V = frames["w2c"].shape[0]
-        dev = scene.xyz.device
-        base = camera(dev)
-        params = {k: p.detach().requires_grad_(True)
-                  for k, p in scene.params().items()}
-        offsets = torch.zeros((V, M, 2), device=dev, requires_grad=True)
-        sc = scene.with_params(params)
-        ls, radii, ndrop, ntrunc, nvis = [], [], [], [], []
-        for v in range(V):
-            frame = {k: x[v] for k, x in frames.items()}
-            out = _render_view(sc, frame, offsets[v], cfg, base)
-            gt_rgb = frame["rgb"].to(torch.float32) / 255.0
-            gt_depth = frame["depth_mm"].to(torch.float32) / 1000.0
-            gt_score = frame["score"].to(torch.float32)
-            l = losses.mapping_loss(out.image[..., :3], out.depth, gt_rgb,
-                                    gt_depth, frame["exposure"][0],
-                                    frame["exposure"][1],
-                                    cfg.rgb_boundary_threshold)
-            ls.append(l + losses.marker_loss(out.image[..., 3], gt_score))
-            radii.append(out.radii)
-            ndrop.append(out.n_dropped)
-            ntrunc.append(out.n_trunc)
-            nvis.append(out.n_vis_dropped)
-        loss = torch.sum(torch.stack(ls))
-        iso = losses.isotropic_loss(torch.exp(params["scaling"]),
-                                    params["marker"][:, 0], scene.alive,
-                                    cfg.marker_thresh)
-        if cfg.primitive_reg:
-            loss = loss + cfg.isotropic_weight * iso
-        *grads, off_grads = torch.autograd.grad(
-            loss, list(params.values()) + [offsets], allow_unused=True)
-        radii = torch.stack(radii)
-        n_dropped = torch.stack([torch.stack(ndrop).sum(),
-                                 torch.stack(ntrunc).sum(),
-                                 torch.stack(nvis).max()]).to(torch.int64)
+        with span("map.step.render"):
+            M = scene.capacity
+            V = frames["w2c"].shape[0]
+            dev = scene.xyz.device
+            base = camera(dev)
+            params = {k: p.detach().requires_grad_(True)
+                      for k, p in scene.params().items()}
+            offsets = torch.zeros((V, M, 2), device=dev, requires_grad=True)
+            sc = scene.with_params(params)
+            ls, radii, ndrop, ntrunc, nvis = [], [], [], [], []
+            for v in range(V):
+                frame = {k: x[v] for k, x in frames.items()}
+                out = _render_view(sc, frame, offsets[v], cfg, base)
+                gt_rgb = frame["rgb"].to(torch.float32) / 255.0
+                gt_depth = frame["depth_mm"].to(torch.float32) / 1000.0
+                gt_score = frame["score"].to(torch.float32)
+                l = losses.mapping_loss(out.image[..., :3], out.depth,
+                                        gt_rgb, gt_depth,
+                                        frame["exposure"][0],
+                                        frame["exposure"][1],
+                                        cfg.rgb_boundary_threshold)
+                ls.append(l + losses.marker_loss(out.image[..., 3],
+                                                 gt_score))
+                radii.append(out.radii)
+                ndrop.append(out.n_dropped)
+                ntrunc.append(out.n_trunc)
+                nvis.append(out.n_vis_dropped)
+            loss = torch.sum(torch.stack(ls))
+            iso = losses.isotropic_loss(torch.exp(params["scaling"]),
+                                        params["marker"][:, 0], scene.alive,
+                                        cfg.marker_thresh)
+            if cfg.primitive_reg:
+                loss = loss + cfg.isotropic_weight * iso
+        # on the card the backward runs on autograd's device thread while
+        # this one waits inside the call
+        with span("map.step.backward"):
+            *grads, off_grads = torch.autograd.grad(
+                loss, list(params.values()) + [offsets], allow_unused=True)
+        with span("map.step.stats"):
+            radii = torch.stack(radii)
+            n_dropped = torch.stack([torch.stack(ndrop).sum(),
+                                     torch.stack(ntrunc).sum(),
+                                     torch.stack(nvis).max()]).to(torch.int64)
 
-        # densification stats per view (train_gaussians.py:239-245)
-        for v in range(cfg.window_size):
-            stats = densify.add_stats(stats, off_grads[v], radii[v],
-                                      cfg.width, cfg.height)
-        vis_union = torch.any(radii > 0, dim=0)
-
-        grads = _finish_grads(scene, params, grads, cfg)
-        lrs = optim.make_lrs(cfg.opt_lr_dict(), cfg.spatial_lr_scale, step)
-        new_params, opt_state = optim.update(scene.params(), grads,
-                                             opt_state, lrs)
-        return (scene.with_params(new_params), opt_state, stats,
-                loss.detach(), vis_union, n_dropped)
+            # densification stats per view (train_gaussians.py:239-245)
+            for v in range(cfg.window_size):
+                stats = densify.add_stats(stats, off_grads[v], radii[v],
+                                          cfg.width, cfg.height)
+            vis_union = torch.any(radii > 0, dim=0)
+        with span("map.step.update"):
+            grads = _finish_grads(scene, params, grads, cfg)
+            lrs = optim.make_lrs(cfg.opt_lr_dict(), cfg.spatial_lr_scale,
+                                 step)
+            new_params, opt_state = optim.update(scene.params(), grads,
+                                                 opt_state, lrs)
+            return (scene.with_params(new_params), opt_state, stats,
+                    loss.detach(), vis_union, n_dropped)
 
     return step_fn
 
@@ -438,7 +447,10 @@ class MappingTrainer:
             return
         arrs = torch.stack(self._pending_dropped).cpu().numpy()
         self._pending_dropped = []
-        self.n_dropped_total += int(arrs[:, 0].sum())
+        n = int(arrs[:, 0].sum())
+        self.n_dropped_total += n
+        count("map.pairs_dropped", n)
+        count("map.steps_checked", len(arrs))
         dropped = int(arrs[:, 0].max())
         trunc = int(arrs[:, 1].max())
         vis = int(arrs[:, 2].max())
@@ -539,38 +551,47 @@ class MappingTrainer:
         loss = None
         for _ in range(iters):
             self.iteration += 1
-            idx = self.host_rng.permutation(n)[:V]
-            if len(idx) < V:   # repeat frames if fewer than the window
-                idx = np.resize(idx, V)
-            frames = self.frames.gather(idx)
-            (self.scene, self.opt_state, self.stats, loss, vis_union,
-             n_dropped) = self._mapping_step(self.scene, self.opt_state,
-                                             self.stats, frames,
-                                             self.iteration)
-            self._pending_dropped.append(n_dropped)
+            it = self.iteration
+            with span("map.step", iteration=it):
+                idx = self.host_rng.permutation(n)[:V]
+                if len(idx) < V:   # repeat frames if fewer than the window
+                    idx = np.resize(idx, V)
+                with span("map.step.gather"):
+                    frames = self.frames.gather(idx)
+                (self.scene, self.opt_state, self.stats, loss, vis_union,
+                 n_dropped) = self._mapping_step(self.scene, self.opt_state,
+                                                 self.stats, frames, it)
+                self._pending_dropped.append(n_dropped)
 
-            update = (self.iteration % cfg.gaussian_update_every
+            update = (it % cfg.gaussian_update_every
                       == cfg.gaussian_update_offset)
             if update:
-                self._check_pair_truncation()
-                self._maybe_grow()
-                self.scene, self.stats, self.opt_state, _ = (
-                    densify.densify_and_prune(
-                        self.scene, self.stats, self.opt_state,
-                        self.generator,
-                        max_grad=cfg.densify_grad_threshold,
-                        min_opacity=cfg.gaussian_th,
-                        extent=cfg.gaussian_extent,
-                        max_screen_size=cfg.size_threshold,
-                        percent_dense=cfg.percent_dense,
-                        primitive_reg=cfg.primitive_reg,
-                        marker_thresh=cfg.marker_thresh))
-                self._refresh_visible_cap()
-                self._ladder_pair_cap()
-            elif self.iteration % cfg.gaussian_reset == 0:
-                self.scene, self.opt_state = densify.reset_opacity_nonvisible(
-                    self.scene, self.opt_state, vis_union)
-        return None if loss is None else float(loss)
+                with span("map.densify", iteration=it):
+                    with span("map.densify.check"):
+                        self._check_pair_truncation()
+                    with span("map.densify.prune"):
+                        self._maybe_grow()
+                        self.scene, self.stats, self.opt_state, _ = (
+                            densify.densify_and_prune(
+                                self.scene, self.stats, self.opt_state,
+                                self.generator,
+                                max_grad=cfg.densify_grad_threshold,
+                                min_opacity=cfg.gaussian_th,
+                                extent=cfg.gaussian_extent,
+                                max_screen_size=cfg.size_threshold,
+                                percent_dense=cfg.percent_dense,
+                                primitive_reg=cfg.primitive_reg,
+                                marker_thresh=cfg.marker_thresh))
+                        self._refresh_visible_cap()
+                    with span("map.densify.ladder"):
+                        self._ladder_pair_cap()
+            elif it % cfg.gaussian_reset == 0:
+                with span("map.reset_opacity", iteration=it):
+                    self.scene, self.opt_state = (
+                        densify.reset_opacity_nonvisible(
+                            self.scene, self.opt_state, vis_union))
+        with span("map.read_loss", iteration=self.iteration):
+            return None if loss is None else float(loss)
 
     # minimum iterations between growth-phase ladder steps (3 densify
     # cycles at the default cadence)

@@ -1,3 +1,2 @@
 from splatloc_tpu_torch.utils.logging import Log
-from splatloc_tpu_torch.utils.profiling import (Timer, trace, MetricsLogger,
-                                                throughput_mpix_s)
+from splatloc_tpu_torch.utils.profiling import trace, MetricsLogger

@@ -3,20 +3,24 @@
 Port of ``splatloc_tpu.utils.profiling``:
 
 - ``trace``: a torch.profiler window written as a Chrome/Perfetto trace
-- ``Timer``: wall-clock timer that waits for the device's results
+- ``span`` / ``count``: the program's own spans and counters at its layer
+  boundaries, off unless ``enable()`` turned them on; ``drain()`` hands
+  them over
 - ``count_syncs``: the host syncs a function makes on the card
 - ``log_collectives``: the torch.distributed collectives a block calls,
   with their sizes
-- ``throughput_mpix_s``: megapixels rendered per second
 - ``MetricsLogger``: structured jsonl metrics stream, the JAX package's
   records
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -39,53 +43,136 @@ def trace(logdir: str, device="cuda"):
             torch.cuda.synchronize(device)
 
 
-def _cuda_devices(out) -> set:
-    """The CUDA devices of the tensors in a nest of tuples, lists and
-    dicts."""
-    if isinstance(out, torch.Tensor):
-        return {out.device} if out.is_cuda else set()
-    if isinstance(out, dict):
-        out = list(out.values())
-    if isinstance(out, (tuple, list)):
-        return set().union(*(_cuda_devices(x) for x in out))
-    return set()
+# -- spans and counters ------------------------------------------------
+#
+# Off (the default), ``span`` is one test of the module flag ``_ON`` and
+# returns the shared no-op context ``_OFF``, and ``count`` is one test: no
+# clock read, no record_function, nothing kept. On, a span reads
+# time.perf_counter_ns at its edges and also opens a
+# torch.profiler.record_function of its name, so inside a torch.profiler
+# window it is a ``user_annotation`` event on the profiler's own clock. A
+# span never synchronizes the device: on the card its wall is the host's
+# time to issue its work, plus any wait its own code makes.
+
+SPAN_CAP = 1 << 17       # spans kept between two drain() calls
 
 
-class Timer:
-    """Wall-clock timer that waits for device results."""
+class Span(NamedTuple):
+    """One closed span. ``attrs`` are its ids (``iteration=``,
+    ``query=``), its parent's merged under its own, so every span of one
+    request carries the request's id; ``parent`` is the enclosing span's
+    ``id`` on the same thread (None at the top)."""
+    name: str
+    id: int
+    parent: int | None
+    attrs: dict
+    t0_ns: int
+    t1_ns: int
+    thread: int
 
-    def __init__(self, name: str = ""):
+
+_OFF = contextlib.nullcontext()
+_ON = False
+
+
+class _Tracer:
+    """What the spans and counters record between two drain() calls."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.ids = itertools.count()
+        self.spans: list = []
+        self.counters: dict = {}
+        self.dropped = 0
+
+    def stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+
+_TRACER = _Tracer()
+
+
+class _OnSpan:
+    __slots__ = ("name", "attrs", "id", "parent", "rf", "t0")
+
+    def __init__(self, name: str, attrs: dict):
         self.name = name
-        self.total = 0.0
-        self.count = 0
-        self._t0 = None
+        self.attrs = attrs
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        st = _TRACER.stack()
+        if st:
+            top = st[-1]
+            self.parent = top.id
+            if top.attrs:
+                self.attrs = {**top.attrs, **self.attrs}
+        else:
+            self.parent = None
+        self.id = next(_TRACER.ids)
+        st.append(self)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        self.total += time.perf_counter() - self._t0
-        self.count += 1
+        t1 = time.perf_counter_ns()
+        self.rf.__exit__(*exc)
+        _TRACER.stack().pop()
+        rec = Span(self.name, self.id, self.parent, self.attrs, self.t0, t1,
+                   threading.get_native_id())
+        with _TRACER.lock:
+            if len(_TRACER.spans) < SPAN_CAP:
+                _TRACER.spans.append(rec)
+            else:
+                _TRACER.dropped += 1
         return False
 
-    def timed(self, fn, *args, **kw):
-        """Run fn, wait for the CUDA devices of its output tensors, record
-        the time."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        for dev in _cuda_devices(out):
-            torch.cuda.synchronize(dev)
-        self.total += time.perf_counter() - t0
-        self.count += 1
-        return out
 
-    @property
-    def mean_ms(self) -> float:
-        return 1000.0 * self.total / max(self.count, 1)
+def span(name: str, **attrs):
+    """A context manager around one layer's work: a no-op while tracing is
+    off, else a recorded ``Span`` (ids in ``attrs``)."""
+    if not _ON:
+        return _OFF
+    return _OnSpan(name, attrs)
 
-    def __repr__(self):
-        return f"Timer({self.name}: {self.mean_ms:.2f} ms x {self.count})"
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (a host integer the caller already holds: never a device
+    value, whose read would sync) to the counter ``name``; a no-op while
+    tracing is off."""
+    if not _ON:
+        return
+    with _TRACER.lock:
+        _TRACER.counters[name] = _TRACER.counters.get(name, 0) + n
+
+
+def enable() -> None:
+    """Turn spans and counters on, keeping at most ``SPAN_CAP`` spans until
+    the next drain() (those past it are counted in ``spans_dropped``)."""
+    global _ON
+    _ON = True
+
+
+def disable() -> None:
+    """Turn spans and counters off; what they recorded stays until
+    drain()."""
+    global _ON
+    _ON = False
+
+
+def drain() -> dict:
+    """{"spans": [Span] in the order they closed, "counters": {name: n},
+    "spans_dropped": spans past the cap}, and clear them."""
+    with _TRACER.lock:
+        out = {"spans": _TRACER.spans, "counters": _TRACER.counters,
+               "spans_dropped": _TRACER.dropped}
+        _TRACER.spans, _TRACER.counters, _TRACER.dropped = [], {}, 0
+    return out
 
 
 # in the warning torch.cuda.set_sync_debug_mode("warn") gives at each
@@ -139,11 +226,6 @@ def log_collectives():
         yield calls
     finally:
         dist.all_reduce, dist.all_gather = saved
-
-
-def throughput_mpix_s(width: int, height: int, iters: int,
-                      seconds: float) -> float:
-    return width * height * iters / seconds / 1e6
 
 
 class MetricsLogger:

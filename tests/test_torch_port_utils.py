@@ -1,5 +1,5 @@
 """Port parity for the host modules of the mapping CLI: utils.profiling
-(MetricsLogger, Timer, throughput, trace), utils.logging (Log),
+(MetricsLogger, trace), utils.logging (Log),
 dist.multihost.initialize (with a two-process gloo smoke mirroring
 tests/test_multihost.py), the native PLY bindings against the Python
 codec, the native frame prefetcher against the JAX package's, and
@@ -50,22 +50,6 @@ def test_metrics_logger_matches_jax(tmp_path):
         assert a == b
     assert recs["port"][0] == {"step": 3, "kf": 0.0, "loss": 0.25,
                                "n_alive": 17.0, "tag": "a"}
-
-
-def test_timer_and_throughput():
-    """Timer counts with-blocks and timed calls (outputs returned, nested
-    tensors waited for), as the JAX package's; the throughput formula is
-    the same."""
-    t = tprof.Timer("x")
-    with t:
-        pass
-    out = t.timed(lambda a: {"y": (a * 2, [a + 1])}, torch.ones(3))
-    assert torch.equal(out["y"][0], torch.full((3,), 2.0))
-    assert t.count == 2 and t.total >= 0 and t.mean_ms >= 0
-    assert repr(t).startswith("Timer(x: ") and repr(t).endswith(" ms x 2)")
-    assert tprof._cuda_devices(out) == set()
-    assert tprof.throughput_mpix_s(640, 480, 10, 2.0) == \
-        jprof.throughput_mpix_s(640, 480, 10, 2.0)
 
 
 def test_log_matches_jax(capsys):
