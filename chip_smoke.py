@@ -193,6 +193,20 @@ Phases:
              drops at default caps of bench_pose's and bench_refine's
              targets and profile_map's keyframe views, and profile_chain's
              device busy and idle ms with its largest gaps
+19. pnp      the benchmark's localize traffic (``portbench``, cell
+             ``localize.replica_room0``) at each of PNP_SEEDS: its set-up,
+             then its 100 queries once each through the Localizer, whose
+             RANSAC solve runs the Gauss-Newton kernel
+             (``csrc/pnp_refine.cu``), launch counts set to 0 just before
+             and read just after each query; the plain version's solve on
+             the inputs and draws the Localizer's solve recorded. Exactly
+             two launches a solve; on every query the same winning
+             hypothesis, the same inliers and count and the pose within
+             PNP_LIMITS (a query that differs fails the phase, its pose
+             gaps against the benchmark's reference in the message).
+             Reports the Localizer's PnP stage ms beside the plain solve's,
+             and on the query with the most pairs the two launches' device
+             ms beside their bound and the plain fits' ms
 
 Prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -221,6 +235,7 @@ from splatloc_tpu_torch import build
 from splatloc_tpu_torch.cli.config import load_config
 from splatloc_tpu_torch.core import sh, transforms
 from splatloc_tpu_torch.core.camera import Camera
+from splatloc_tpu_torch.match import pnp
 from splatloc_tpu_torch.raster import binning, hopper_raster, pairs, project
 from splatloc_tpu_torch.raster import RasterConfig, render
 from splatloc_tpu_torch.scene import ply
@@ -1021,16 +1036,28 @@ def make_keyframes(scene, cfg: MappingConfig, n: int, device) -> list:
     return frames
 
 
+# the raster path's kernels; read_launches adds PnP's Gauss-Newton kernel
+RASTER_KERNELS = ("fwd_pairwalk", "bwd_pairwalk", "seg_reduce")
+
+
+def _launchers() -> dict:
+    return {**{k: getattr(hopper_raster, k) for k in RASTER_KERNELS},
+            "pnp_refine": pnp.gauss_newton_fit}
+
+
 def reset_launches() -> None:
-    for k in (hopper_raster.fwd_pairwalk, hopper_raster.bwd_pairwalk,
-              hopper_raster.seg_reduce):
+    for k in _launchers().values():
         k.launches = 0
 
 
 def read_launches() -> dict:
-    return {"fwd_pairwalk": hopper_raster.fwd_pairwalk.launches,
-            "bwd_pairwalk": hopper_raster.bwd_pairwalk.launches,
-            "seg_reduce": hopper_raster.seg_reduce.launches}
+    return {name: k.launches for name, k in _launchers().items()}
+
+
+def raster_only(n: int) -> dict:
+    """The launch counts of a path that runs ``n`` of each raster kernel
+    and no PnP."""
+    return {**dict.fromkeys(RASTER_KERNELS, n), "pnp_refine": 0}
 
 
 def profile_step(trainer, reps: int = 2) -> dict:
@@ -1178,7 +1205,7 @@ def train_phase(scene, seed: int, device, card: str,
     log(f"train: launches {json.dumps(launches)} for {n_map} mapping "
         f"iterations of {cfg.window_size} views and {refine_iters} "
         f"refinement iterations (expected {want} each)")
-    if any(v != want for v in launches.values()):
+    if launches != raster_only(want):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if trainer.n_dropped_total != 0:
         raise AssertionError(f"{trainer.n_dropped_total} pairs dropped")
@@ -1663,6 +1690,11 @@ def localize_phase(seed: int, device, card: str, n: int = N_GAUSSIANS,
     if any(v < 1 for v in launches.values()):
         raise AssertionError(f"a kernel did not launch in the phase: "
                              f"{launches}")
+    # every query solved, so every query ran one RANSAC solve: two fits
+    if launches_pose["pnp_refine"] != 2 * len(per_query):
+        raise AssertionError(f"eval_pose launched PnP's kernel "
+                             f"{launches_pose['pnp_refine']} times for "
+                             f"{len(per_query)} queries")
 
     # the kernels against their plain versions on the last query's
     # full-resolution refinement view (at its refined pose)
@@ -2069,7 +2101,7 @@ def map_phase(tmp: str, seed: int, device, card: str,
                     "names_fwd_pairwalk": named}
     log(f"map: device trace of keyframe {trace_kf}'s map() block "
         + json.dumps(res["trace"]))
-    if any(v != want for v in launches.values()):
+    if launches != raster_only(want):
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not named:
         raise AssertionError("the trace names no fwd_pairwalk launch")
@@ -2536,7 +2568,7 @@ def protocol_phase(tmp: str, seed: int, device, card: str,
                              f"{len(test_ds)} queries")
     if len(curve) < 2 or not curve[-1] < curve[0]:
         raise AssertionError(f"decoder loss did not fall: {curve}")
-    if any(n < 1 for n in launches.values()):
+    if any(launches[k] < 1 for k in RASTER_KERNELS):
         raise AssertionError(f"a kernel did not launch in the protocol: "
                              f"{launches}")
 
@@ -3043,7 +3075,7 @@ def gate_phase(seed: int, device, card: str,
                                 eval_cfg) for _, _, w2c in run.evals]
     steps = trainer.cfg.window_size * res["iters"]
     want = {"fwd_pairwalk": steps + len(run.evals), "bwd_pairwalk": steps,
-            "seg_reduce": steps}
+            "seg_reduce": steps, "pnp_refine": 0}
     info = {"result": res, "seconds": run.seconds,
             "gt_pairs_dropped": run.gt_dropped,
             "tail_pairs_dropped": run.tail_dropped,
@@ -3102,7 +3134,7 @@ def refine_table_phase(seed: int, device, card: str,
     launches = read_launches()
     log(f"refine_table on {card}: " + json.dumps(
         {"rows": rows, "launches": launches}))
-    if not all(launches.values()):
+    if not all(launches[k] for k in RASTER_KERNELS):
         raise AssertionError(f"a kernel was never launched by the table's "
                              f"refinements: {launches}")
     t_lim = LOC_LIMITS["match_median_t_m"] * 100
@@ -3262,7 +3294,10 @@ def rehearsal_phase(seed: int, device, card: str,
     iters = sum(int(lv["iters"]) for i in infos for lv in i["levels"])
     want = {"fwd_pairwalk": n_train + len(infos) + iters
             + sum(i["seed_evals"] + 2 for i in infos),
-            "bwd_pairwalk": iters, "seg_reduce": iters}
+            "bwd_pairwalk": iters, "seg_reduce": iters,
+            # two a RANSAC solve: every query with a sample's worth of
+            # kept matches
+            "pnp_refine": 2 * sum(q.get("kept", 0) >= 6 for q in per_query)}
     info = {"result": res, "seconds": run.seconds,
             "peak_mem_gb": run.peak_mem_gb, "landmarks": len(run.landmarks),
             "pnp_errors": run.pnp_errors,
@@ -3381,10 +3416,6 @@ BENCH_KEYS = {
 BENCH_CPU_LIMITS = {"loss": 5e-5, "grad_rel_l2": 1e-3}
 
 
-def each_kernel(n: int) -> dict:
-    return {"fwd_pairwalk": n, "bwd_pairwalk": n, "seg_reduce": n}
-
-
 def check_line(name: str, line: dict) -> None:
     """The JAX program's keys in their order and every number finite
     (bench_pose's vs_baseline is the JAX program's null)."""
@@ -3479,6 +3510,8 @@ def bench_phase(seed: int, device, card: str) -> dict:
         return out
 
     def expect(name, want):
+        # none of the tools runs PnP
+        want = {"pnp_refine": 0, **want}
         info[name]["launches_expected"] = want
         if launches[name] != want:
             raise AssertionError(f"{name} launches {launches[name]}, "
@@ -3542,7 +3575,7 @@ def bench_phase(seed: int, device, card: str) -> dict:
         PROFILE_ITERS, device=device))
     report("profile_bench", pb["result"])
     info["profile_bench"]["gaps"] = pb["summary"]["gaps"][:6]
-    expect("profile_bench", each_kernel(2 + 2 * PROFILE_ITERS))
+    expect("profile_bench", raster_only(2 + 2 * PROFILE_ITERS))
 
     # profile_chain: a first step, a drop check, a warm step, then
     # PROFILE_ITERS timed and PROFILE_ITERS traced
@@ -3564,7 +3597,7 @@ def bench_phase(seed: int, device, card: str) -> dict:
         MAP_PROFILE_ALIVE, MAP_PROFILE_ITERS, device=device))
     report("profile_map", pm["result"])
     trainer = pm["trainer"]
-    expect("profile_map", each_kernel(trainer.cfg.window_size
+    expect("profile_map", raster_only(trainer.cfg.window_size
                                       * (1 + 2 * MAP_PROFILE_ITERS)))
     rcfg = trainer.cfg.raster_config()
     views = [trainer.camera.replace_pose(trainer.frames.w2c[i])
@@ -3605,6 +3638,190 @@ def bench_phase(seed: int, device, card: str) -> dict:
                       if isinstance(v, dict) and "wall_s" in v}))
     return {"launches": total, "kernel_errs": errs, "info": info,
             "phase_s": info["phase_s"]}
+
+
+
+# --------------------------------------------------------------------------
+# 19. pnp: the Gauss-Newton kernel against its plain version on the
+# benchmark's localize traffic
+# --------------------------------------------------------------------------
+
+PNP_CELL = "localize.replica_room0"
+# seeds of that cell at which the plain fits themselves miss its pose check
+# on some query: 627921043 (query 81) and 1800000413 (queries 60 and 84)
+PNP_SEEDS = (627921043, 1800000413)
+# the kernel's final world-to-camera pose against the plain version's
+PNP_LIMITS = {"r": 1e-5, "t": 1e-5}
+# NVIDIA H100 SXM data sheet: float64 outside the tensor cores
+FP64_OPS_PER_S = 34e12
+# the operations of a Gauss-Newton fit: each iteration, on a weighted
+# pair, float32 for the pose and its 6 tangents applied to the point, the
+# projection and the residual and Jacobian rows, and float64 for the 27
+# sums (two exact products and two additions each); on every pair, once a
+# fit, float32 for its reprojection error under the starting pose (its
+# weight) and once more under the fitted pose (the score or the inliers)
+GN_F32_OPS_PER_PAIR = 170
+GN_F64_OPS_PER_PAIR = 108
+GN_F32_OPS_PER_ERR = 30
+
+
+def gn_bound_ms(n_weighted: int, n_poses: int, n_pairs: int,
+                iters: int) -> tuple[float, str, dict]:
+    """The least time the card could take for one fit launch: its float32
+    and float64 operations each over their rate, the larger of the two
+    (the inputs are tens of KB). ``n_weighted`` is the weighted pairs
+    summed over the poses."""
+    f32 = (iters * n_weighted * GN_F32_OPS_PER_PAIR
+           + 2 * n_poses * n_pairs * GN_F32_OPS_PER_ERR)
+    f64 = iters * n_weighted * GN_F64_OPS_PER_PAIR
+    t32, t64 = f32 / FP32_OPS_PER_S * 1e3, f64 / FP64_OPS_PER_S * 1e3
+    return max(t32, t64), ("f64 operations" if t64 >= t32
+                           else "f32 operations"), {
+        "f32_ops": f32, "f64_ops": f64, "f32_ms": t32, "f64_ms": t64}
+
+
+def on_host(solved) -> dict:
+    """``pnp._solve_core``'s outputs (the fitted world-to-camera pose, the
+    inliers, their count, the winning hypothesis) on the host."""
+    R, t, inl, n, best = solved
+    return {"R": R.cpu().numpy(), "t": t.cpu().numpy(),
+            "inl": inl.cpu().numpy(), "n": int(n), "best": int(best)}
+
+
+def pnp_pose_gap(pre: dict, q: int, pairs, side: dict,
+                 min_inliers: int = 5) -> float | None:
+    """portbench's ``pose_gap_px`` of one side's pose on query ``q``'s
+    pairs: against the reference's PnP, over the database frustum's
+    landmarks; inf where one side has no pose, None where neither has."""
+    from portbench.reference import localize as ref
+    inp, sel = pre["inp"], pre["sel"]
+    db = inp.db[q % len(inp.db)].astype(np.float64)
+    inside, _ = ref.frustum(sel, db, inp.K, inp.W, inp.H)
+    rp = ref.pnp(*pairs, inp.K, np.random.default_rng([pre["seed"], 17, q]),
+                 start=(db[:3, :3], db[:3, 3]))
+    mp = (None if side["n"] < min_inliers else
+          (side["R"].astype(np.float64), side["t"].astype(np.float64)))
+    if rp is None or mp is None:
+        return None if rp is None and mp is None else float("inf")
+    return ref.pose_gap_near(mp, rp, *pairs, inp.K, sel[inside])
+
+
+def pnp_phase(seed: int, device, card: str) -> dict:
+    """Phase 19: the benchmark's localize traffic (cell PNP_CELL) at
+    ``seed``: its set-up, then each of its queries once through the
+    Localizer, whose PnP runs the kernel, with every kernel's launch count
+    set to 0 just before and read just after the query; the Localizer's
+    own RANSAC solve (``pnp._solve_core``'s inputs and outputs, recorded)
+    against the plain version's on the same inputs and draws. Fails unless
+    the kernel launches exactly twice a solve and the two sides agree on
+    every query: the same winning hypothesis, the same inliers and count,
+    the pose within PNP_LIMITS. The message names the queries that differ
+    with both sides' pose gap against the benchmark's reference. Reports
+    the Localizer's PnP stage ms beside the plain solve's ms,
+    and the two launches' device ms (host-ahead) beside their bound and
+    the plain fits' ms (host-paced) on the query with the most pairs."""
+    from portbench import harness
+    from portbench.generators import localize as gen
+    from splatloc_tpu_torch.core.precision import full_float32
+
+    t_phase = time.perf_counter()
+    kernel, plain = pnp.gauss_newton_fit, pnp.gauss_newton_fit_plain
+    core = pnp._solve_core
+    pre = gen.prepare(harness.find_cell(PNP_CELL), seed, device)
+    loc = pre["loc"]
+    solves = []
+
+    def recorded(*args):
+        out = core(*args)
+        solves.append((args, out))
+        return out
+
+    rows, diffs, worst, big = [], [], {"r": 0.0, "t": 0.0}, None
+    launches = dict.fromkeys(read_launches(), 0)
+    for q in range(len(pre["inp"].queries)):
+        loc.cur, solves[:] = {}, []
+        reset_launches()
+        with mock.patch.object(pnp, "_solve_core", recorded):
+            loc.localize({}, f"q{q}")
+        got = read_launches()
+        launches = {k: n + got[k] for k, n in launches.items()}
+        if got["pnp_refine"] != 2 * len(solves) or len(solves) > 1:
+            raise AssertionError(f"pnp: query {q}: {len(solves)} solves, "
+                                 f"launches {got}")
+        if not solves:
+            continue
+        args, out = solves[0]
+        k = on_host(out)
+        synced(device)
+        t0 = time.perf_counter()
+        with mock.patch.object(pnp, "gauss_newton_fit", plain):
+            p = on_host(core(*args))
+        p["ms"] = (time.perf_counter() - t0) * 1e3
+        k["ms"] = loc.last_stages["pnp"] * 1e3
+        dr = float(np.abs(k["R"] - p["R"]).max())
+        dt = float(np.abs(k["t"] - p["t"]).max())
+        worst = {"r": max(worst["r"], dr), "t": max(worst["t"], dt)}
+        rows.append({"q": q, "pairs": loc.cur["pairs"], "kernel": k,
+                     "plain": p})
+        if big is None or args[0].shape[0] > big[1][0].shape[0]:
+            big = (q, args[:5])
+        same = (k["best"] == p["best"] and k["n"] == p["n"]
+                and np.array_equal(k["inl"], p["inl"])
+                and dr <= PNP_LIMITS["r"] and dt <= PNP_LIMITS["t"])
+        if not same:
+            diffs.append({"q": q, "best": [k["best"], p["best"]],
+                          "inliers": [k["n"], p["n"]], "r": dr, "t": dt})
+    loc.untap()
+    for d in diffs:
+        row = next(r for r in rows if r["q"] == d["q"])
+        d["pose_gap_px"] = [pnp_pose_gap(pre, d["q"], row["pairs"],
+                                         row[s]) for s in ("kernel", "plain")]
+    n_solved = len(rows)
+    log(f"pnp: seed {seed}, {n_solved} queries solved, the Localizer's "
+        f"launches {json.dumps(launches)}; winners, inliers or poses differ "
+        f"on {len(diffs)}: " + json.dumps(diffs)
+        + f"; worst pose difference {json.dumps(worst)}")
+    if diffs:
+        raise AssertionError(f"pnp: the kernel and the plain fits differ "
+                             f"on {len(diffs)} queries (pose_gap_px: "
+                             f"kernel, plain): {json.dumps(diffs)}")
+
+    # the two launches on the query with the most pairs
+    p2, p3, valid, pri, thr = big[1]
+    with full_float32():
+        R, t, ok = pnp._hypotheses(p2, p3, valid, pri, 6)
+        Rh, th, score = kernel(R, t, p2, p3, valid, thr, 5, ok=ok)
+        best = torch.argmax(score)
+        err = pnp._reproj_errors(R, t, p2, p3)
+        w_loose = int(((err < 3.0 * thr) & valid).sum())
+        err = pnp._reproj_errors(Rh[best:best + 1], th[best:best + 1], p2, p3)
+        w_strict = int(((err < thr) & valid).sum())
+        M, B = p2.shape[0], R.shape[0]
+        timing = {
+            "pairs": M, "hypotheses": B,
+            "weighted": [w_loose, w_strict],
+            "hypotheses_ms": event_ms(
+                lambda: kernel(R, t, p2, p3, valid, thr, 5, ok=ok), 20),
+            "final_ms": event_ms(
+                lambda: kernel(Rh, th, p2, p3, valid, thr, 10, best=best),
+                20),
+            "plain_hypotheses_ms": event_ms(
+                lambda: plain(R, t, p2, p3, valid, thr, 5, ok=ok), 3, 1,
+                host_ahead=False),
+            "plain_final_ms": event_ms(
+                lambda: plain(Rh, th, p2, p3, valid, thr, 10, best=best), 3,
+                1, host_ahead=False)}
+    timing["bound_hypotheses"] = gn_bound_ms(w_loose, B, M, 5)
+    timing["bound_final"] = gn_bound_ms(w_strict, 1, M, 10)
+    solve_ms = {"localizer_pnp_stage": float(np.median(
+        [r["kernel"]["ms"] for r in rows])), "plain_solve": float(np.median(
+            [r["plain"]["ms"] for r in rows]))}
+    log(f"pnp: on {card}, query {big[0]}'s {M} pairs: " + json.dumps(timing)
+        + "; median ms " + json.dumps(solve_ms))
+    del loc, pre
+    return {"seed": seed, "launches": launches, "solved": n_solved,
+            "worst": worst, "timing": timing, "solve_ms": solve_ms,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def main(argv=None) -> int:
@@ -3763,12 +3980,18 @@ def main(argv=None) -> int:
     # set to 0 just before, read just after each tool (inside bench_phase)
     benched = bench_phase(args.seed, dev, card)
 
+    # 19. pnp: the Gauss-Newton kernel against its plain version on the
+    # benchmark's localize traffic at each of PNP_SEEDS (inside pnp_phase)
+    pnp_runs = [pnp_phase(s, dev, card) for s in PNP_SEEDS]
+
     paths = {"serve": launches, "train": train["launches"],
              "localize": loc["launches"], "map": mapped["launches"],
              "protocol": proto["launches"], "dist": sharded["launches"],
              "gate": gate["launches"], "refine_table": table["launches"],
              "rehearsal": rehearsal["launches"],
-             "bench": benched["launches"]}
+             "bench": benched["launches"],
+             "pnp": {k: sum(r["launches"][k] for r in pnp_runs)
+                     for k in pnp_runs[0]["launches"]}}
 
     def launched(k):
         return {"launches": sum(p.get(k, 0) for p in paths.values()),
@@ -3809,6 +4032,18 @@ def main(argv=None) -> int:
          "source": src + "seg_reduce.cu", "replaces": ref + "703",
          "folded_into": "seg_reduce",
          **launched("seg_reduce"), **bwd["seg_reduce"]},
+        # no Pallas kernel: the JAX package's PnP is jnp code
+        {"name": "pnp_refine", "route": "cuda",
+         "source": src + "pnp_refine.cu", "replaces": None,
+         **launched("pnp_refine"),
+         "max_pose_diff": {k: max(r["worst"][k] for r in pnp_runs)
+                           for k in PNP_LIMITS},
+         **{k: pnp_runs[0]["timing"][k] for k in (
+             "hypotheses_ms", "final_ms", "plain_hypotheses_ms",
+             "plain_final_ms")},
+         "bound_ms": [pnp_runs[0]["timing"][k][0] for k in (
+             "bound_hypotheses", "bound_final")],
+         "library_ms": None},
     ]
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {"fwd_pairwalk": "fwd_pairwalk.cu",
            "bwd_pairwalk": "bwd_pairwalk.cu",
-           "seg_reduce": "seg_reduce.cu"}
+           "seg_reduce": "seg_reduce.cu",
+           "pnp_refine": "pnp_refine.cu"}
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 # no --use_fast_math: __expf would move alpha away from the reference
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

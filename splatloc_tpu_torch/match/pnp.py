@@ -5,9 +5,11 @@ Port of ``splatloc_tpu.match.pnp``: batched minimal-sample hypotheses
 (6-point DLT -> projection matrix -> nearest rotation) scored by
 reprojection inliers, each refined by Gauss-Newton on its loose-inlier
 support, then a final Gauss-Newton on the winner's strict inliers, all
-parameterized by an SE(3) twist. The hypotheses run as one batch: a batched
-12x12 SVD, Jacobians by ``torch.func.jacfwd`` of the same residual under
-``vmap``, and a batched 6x6 solve.
+parameterized by an SE(3) twist. The hypotheses run as one batch (a batched
+12x12 SVD). The two Gauss-Newton fits are ``gauss_newton_fit``: on the
+card two launches of the kernel ``csrc/pnp_refine.cu``, on the CPU its
+plain version (Jacobians by ``torch.func.jacfwd`` of the same residual
+under ``vmap``, a batched 6x6 solve).
 
 The JAX package draws each hypothesis' sample from a PRNG key; here
 ``_solve_core`` takes the random priorities [n_hypotheses, M] as a tensor
@@ -19,10 +21,13 @@ Returns the camera-to-world rotation/translation like the reference
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from splatloc_tpu_torch import build
 from splatloc_tpu_torch.core import transforms
 from splatloc_tpu_torch.core.precision import full_float32
 from splatloc_tpu_torch.utils.profiling import span
@@ -109,38 +114,187 @@ def _gauss_newton_refine(R, t, pts2d_n, pts3d, weights, iters: int = 10):
     return Rt @ R, (Rt @ t[..., None])[..., 0] + T[:, :3, 3]
 
 
+def gauss_newton_fit_plain(R, t, pts2d_n, pts3d, valid, thresh: float,
+                           iters: int, ok=None, best=None):
+    """The plain version of ``gauss_newton_fit``, the same function in
+    PyTorch: ``_gauss_newton_refine`` on the weights the kernel builds,
+    then the kernel's scoring."""
+    if best is None:
+        err = _reproj_errors(R, t, pts2d_n, pts3d)           # [B, M]
+        w = ((err < 3.0 * thresh) & valid).to(torch.float32)
+        R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, iters)
+        err = _reproj_errors(R, t, pts2d_n, pts3d)
+        inl = (err < thresh) & valid
+        score = torch.where(ok & torch.isfinite(t).all(1), inl.sum(1),
+                            torch.full_like(inl.sum(1), -1))
+        return R, t, score
+    R, t = R[best:best + 1], t[best:best + 1]
+    err = _reproj_errors(R, t, pts2d_n, pts3d)
+    w = ((err < thresh) & valid).to(torch.float32)
+    R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, iters)
+    err2 = _reproj_errors(R, t, pts2d_n, pts3d)
+    inl2 = ((err2 < thresh) & valid)[0]
+    return R, t, inl2, inl2.sum()
+
+
+def _check_fit_inputs(R, t, pts2d_n, pts3d, valid, ok, best):
+    if (ok is None) == (best is None):
+        raise ValueError("pass either ok (fit every pose) or best (fit "
+                         "the pose it indexes)")
+    B, M = R.shape[0], pts3d.shape[0]
+    want = {"R": (R, torch.float32, (B, 3, 3)),
+            "t": (t, torch.float32, (B, 3)),
+            "pts2d_n": (pts2d_n, torch.float32, (M, 2)),
+            "pts3d": (pts3d, torch.float32, (M, 3)),
+            "valid": (valid, torch.bool, (M,))}
+    if ok is not None:
+        want["ok"] = (ok, torch.bool, (B,))
+    else:
+        want["best"] = (best, torch.int64, ())
+    if B < 1:
+        raise ValueError("R holds no pose")
+    for name, (x, dtype, shape) in want.items():
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != R.device:
+            raise ValueError(f"{name} is on {x.device}, R on {R.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+_FIT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
+                 + [ctypes.c_void_p] * 6)
+
+
+def _fit_lib():
+    lib = build.load("pnp_refine")
+    lib.pnp_refine_launch.argtypes = _FIT_ARGTYPES
+    lib.pnp_refine_launch.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def gauss_newton_fit(R, t, pts2d_n, pts3d, valid, thresh: float,
+                     iters: int, ok=None, best=None):
+    """Gauss-Newton fits of poses R [B,3,3], t [B,3] (world to camera) to
+    the pairs pts2d_n [M,2] (normalized) and pts3d [M,3] where ``valid``
+    [M], ``iters`` iterations each, in an SE(3) twist.
+
+    With ``ok`` [B] (the DLT's flags): every pose, on the pairs within
+    3 ``thresh`` of its own reprojection. Returns the fitted (R, t) and
+    each fit's score [B] int64: its inliers (valid pairs within ``thresh``)
+    where ``ok`` and t is finite, else -1.
+    With ``best`` (an int64 index on the device, e.g. ``argmax`` of the
+    scores): pose ``best`` alone, on its inliers. Returns the fitted
+    (R [1,3,3], t [1,3]), its inliers [M] and their count (int64, 0-d).
+
+    On CUDA tensors it launches ``csrc/pnp_refine.cu`` once on the current
+    stream, without waiting for the device, and adds one to
+    ``gauss_newton_fit.launches``; on CPU tensors it runs
+    ``gauss_newton_fit_plain``. Another device, a wrong dtype or shape, a
+    non-contiguous tensor, or both or neither of ``ok`` and ``best``
+    raise."""
+    _check_fit_inputs(R, t, pts2d_n, pts3d, valid, ok, best)
+    dev = R.device
+    if dev.type == "cpu":
+        return gauss_newton_fit_plain(R, t, pts2d_n, pts3d, valid, thresh,
+                                      iters, ok=ok, best=best)
+    if dev.type != "cuda":
+        raise ValueError(f"gauss_newton_fit runs on cuda or cpu, not {dev}")
+    B, M = R.shape[0], pts3d.shape[0]
+    n_out = B if best is None else 1
+    R_out = R.new_empty((n_out, 3, 3))
+    t_out = t.new_empty((n_out, 3))
+    score = inl = count = None
+    if best is None:
+        score = R.new_empty((B,), dtype=torch.int64)
+    else:
+        inl = valid.new_empty((M,))
+        count = R.new_empty((), dtype=torch.int64)
+    # the band of the loose weights, rounded to float32 as the plain
+    # version's comparison rounds it
+    weight_thresh = 3.0 * thresh if best is None else thresh
+    lib = _fit_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pnp_refine_launch(
+            R.data_ptr(), t.data_ptr(), _ptr(ok), _ptr(best), B,
+            pts2d_n.data_ptr(), pts3d.data_ptr(), valid.data_ptr(), M,
+            weight_thresh, thresh, iters, R_out.data_ptr(), t_out.data_ptr(),
+            _ptr(score), _ptr(inl), _ptr(count), stream)
+    if err != 0:
+        raise RuntimeError(f"pnp_refine launch failed: CUDA error {err}")
+    gauss_newton_fit.launches += 1
+    if best is None:
+        return R_out, t_out, score
+    return R_out, t_out, inl, count
+
+
+gauss_newton_fit.launches = 0
+
+
+def _hypotheses(pts2d_n, pts3d, valid, priorities, sample_size: int):
+    """The DLT pose (R, t contiguous, ok) of each hypothesis' sample: its
+    ``sample_size`` highest-priority valid points."""
+    pri = priorities + torch.where(valid, 0.0, -10.0)
+    idx = torch.topk(pri, sample_size, dim=1).indices        # [B, S]
+    R, t, ok = _dlt_pose(pts2d_n[idx], pts3d[idx])
+    return R, t.contiguous(), ok
+
+
 @full_float32()
 def _solve_core(pts2d_n, pts3d, valid, priorities, inlier_thresh_n: float,
                 sample_size: int, refine_iters: int):
     """RANSAC over ``priorities`` [n_hypotheses, M] (one uniform draw per
-    hypothesis and point: each hypothesis samples its ``sample_size``
-    highest-priority valid points). Returns (R, t, inliers [M], count)."""
+    hypothesis and point). Returns (R, t, inliers [M], count, the winning
+    hypothesis' index), on the device."""
     with span("pnp.hypotheses"):
-        pri = priorities + torch.where(valid, 0.0, -10.0)
-        idx = torch.topk(pri, sample_size, dim=1).indices    # [B, S]
-        R, t, ok = _dlt_pose(pts2d_n[idx], pts3d[idx])
+        R, t, ok = _hypotheses(pts2d_n, pts3d, valid, priorities,
+                               sample_size)
     # near-minimal DLT amplifies pixel noise badly, so refine EVERY
     # hypothesis on its loose-inlier support, then score the refined pose
     # at the true threshold
     with span("pnp.refine_hypotheses"):
-        err = _reproj_errors(R, t, pts2d_n, pts3d)           # [B, M]
-        w = ((err < 3.0 * inlier_thresh_n) & valid).to(torch.float32)
-        R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, 5)
+        R, t, score = gauss_newton_fit(R, t, pts2d_n, pts3d, valid,
+                                       inlier_thresh_n, 5, ok=ok)
     with span("pnp.score"):
-        err = _reproj_errors(R, t, pts2d_n, pts3d)
-        inl = (err < inlier_thresh_n) & valid
-        score = torch.where(ok & torch.isfinite(t).all(1), inl.sum(1),
-                            torch.full_like(inl.sum(1), -1))
         best = torch.argmax(score)
-        R, t = R[best:best + 1], t[best:best + 1]
     # final local optimization on the winner's strict inliers
     with span("pnp.refine_final"):
-        err = _reproj_errors(R, t, pts2d_n, pts3d)
-        w = ((err < inlier_thresh_n) & valid).to(torch.float32)
-        R, t = _gauss_newton_refine(R, t, pts2d_n, pts3d, w, refine_iters)
-        err2 = _reproj_errors(R, t, pts2d_n, pts3d)
-        inl2 = ((err2 < inlier_thresh_n) & valid)[0]
-    return R[0], t[0], inl2, inl2.sum()
+        R, t, inl, count = gauss_newton_fit(R, t, pts2d_n, pts3d, valid,
+                                            inlier_thresh_n, refine_iters,
+                                            best=best)
+    return R[0], t[0], inl, count, best
+
+
+def ransac_inputs(pts2d: np.ndarray, pts3d: np.ndarray, K: np.ndarray,
+                  inlier_px: float, n_hypotheses: int, seed: int,
+                  priorities, device):
+    """``_solve_core``'s inputs on ``device``: the normalized pairs, their
+    validity, the draws (``priorities``, or drawn from ``seed``) and the
+    threshold in normalized units."""
+    M = pts2d.shape[0]
+    fx, fy = K[0, 0], K[1, 1]
+    cx, cy = K[0, 2], K[1, 2]
+    pts2d_n = np.stack([(pts2d[:, 0] - cx) / fx,
+                        (pts2d[:, 1] - cy) / fy], axis=-1).astype(np.float32)
+    thresh_n = float(np.float32(inlier_px / float((fx + fy) / 2)))
+    valid = np.isfinite(pts2d_n).all(-1) & np.isfinite(pts3d).all(-1)
+    if priorities is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        priorities = torch.rand((n_hypotheses, M), generator=gen,
+                                device=device)
+    return (torch.as_tensor(pts2d_n, device=device),
+            torch.as_tensor(np.ascontiguousarray(pts3d, np.float32),
+                            device=device),
+            torch.as_tensor(valid, device=device),
+            torch.as_tensor(priorities, dtype=torch.float32, device=device),
+            thresh_n)
 
 
 def solve_pnp_ransac(pts2d: np.ndarray, pts3d: np.ndarray, K: np.ndarray,
@@ -160,22 +314,10 @@ def solve_pnp_ransac(pts2d: np.ndarray, pts3d: np.ndarray, K: np.ndarray,
     if M < sample_size:
         return {"success": False, "r": None, "t": None,
                 "num_inliers": 0, "inliers": np.zeros((M,), bool)}
-    fx, fy = K[0, 0], K[1, 1]
-    cx, cy = K[0, 2], K[1, 2]
-    pts2d_n = np.stack([(pts2d[:, 0] - cx) / fx,
-                        (pts2d[:, 1] - cy) / fy], axis=-1).astype(np.float32)
-    thresh_n = float(np.float32(inlier_px / float((fx + fy) / 2)))
-    valid = np.isfinite(pts2d_n).all(-1) & np.isfinite(pts3d).all(-1)
-    if priorities is None:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        priorities = torch.rand((n_hypotheses, M), generator=gen,
-                                device=device)
-    R, t, inl, n_inl = _solve_core(
-        torch.as_tensor(pts2d_n, device=device),
-        torch.as_tensor(np.asarray(pts3d, np.float32), device=device),
-        torch.as_tensor(valid, device=device),
-        torch.as_tensor(priorities, dtype=torch.float32, device=device),
-        thresh_n, sample_size, refine_iters)
+    R, t, inl, n_inl, _ = _solve_core(
+        *ransac_inputs(pts2d, pts3d, K, inlier_px, n_hypotheses, seed,
+                       priorities, device),
+        sample_size, refine_iters)
     # the host's first wait on the device's PnP work
     with span("pnp.readback"):
         n_inl = int(n_inl)

@@ -960,3 +960,84 @@ def test_bench_tool_prints_one_line_on_card(cuda, tool):
             assert v is None                # the JAX program's null
         elif not isinstance(v, str):
             assert v is not None and math.isfinite(v), (k, line)
+
+
+def _fit_problem(dev, seed=0, n=900, n_hyp=1024):
+    """Pairs shaped like the localize cell's (~900, a third of them outliers
+    at random places, 1 px of noise at f = 320) and their 1,024 DLT
+    hypotheses, on ``dev``."""
+    from splatloc_tpu_torch.match import pnp
+    rng = np.random.default_rng(seed)
+    pts3d = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                      rng.uniform(1, 6, n)], -1).astype(np.float32)
+    uv = pts3d[:, :2] / pts3d[:, 2:3] + rng.normal(0, 1 / 320, (n, 2))
+    uv[:n // 3] = rng.uniform(-1, 1, (n // 3, 2))
+    p2 = torch.from_numpy(uv.astype(np.float32)).to(dev)
+    p3 = torch.from_numpy(pts3d).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    pri = torch.rand((n_hyp, n), generator=torch.Generator().manual_seed(seed))
+    R, t, ok = pnp._hypotheses(p2, p3, valid, pri.to(dev), 6)
+    return R, t, p2, p3, valid, ok, float(np.float32(12.0 / 320))
+
+
+def _both_fits(fit, R, t, p2, p3, valid, ok, thr):
+    from splatloc_tpu_torch.core.precision import full_float32
+    with full_float32():
+        Rh, th, score = fit(R, t, p2, p3, valid, thr, 5, ok=ok)
+        best = torch.argmax(score)
+        Rf, tf, inl, n = fit(Rh, th, p2, p3, valid, thr, 10, best=best)
+    return score, best, Rf, tf, inl, n
+
+
+def test_gauss_newton_fit_kernel_matches_plain(cuda):
+    """The kernel's two fits against the plain version's on the card, on
+    cell-shaped pairs: the same score on every contender (a hypothesis
+    within 90 % of the best count on either side; the fits of the others
+    are ill-posed, and rounding moves them), the same winning hypothesis
+    and final inliers, R and t within 1e-5."""
+    from splatloc_tpu_torch.match import pnp
+    args = _fit_problem(cuda)
+    ks, kb, kR, kt, ki, kn = _both_fits(pnp.gauss_newton_fit, *args)
+    ps, pb, pR, pt, pi, pn = _both_fits(pnp.gauss_newton_fit_plain, *args)
+    assert int(ks.max()) == int(ps.max()) > 500
+    top = (ks >= 0.9 * ks.max()) | (ps >= 0.9 * ps.max())
+    assert int(top.sum()) >= 10
+    assert torch.equal(ks[top], ps[top]), (ks[top], ps[top])
+    assert int(kb) == int(pb)
+    assert torch.equal(ki, pi) and int(kn) == int(pn)
+    assert float((kR - pR).abs().max()) <= 1e-5
+    assert float((kt - pt).abs().max()) <= 1e-5
+
+
+def test_gauss_newton_fit_kernel_is_deterministic(cuda):
+    """Two runs of the kernel's fits agree bit for bit, and a failed DLT
+    (non-finite pose, ok False) scores -1."""
+    from splatloc_tpu_torch.match import pnp
+    R, t, p2, p3, valid, ok, thr = _fit_problem(cuda, seed=1)
+    R[3], t[3], ok[3] = float("nan"), float("nan"), False
+    a = _both_fits(pnp.gauss_newton_fit, R, t, p2, p3, valid, ok, thr)
+    b = _both_fits(pnp.gauss_newton_fit, R, t, p2, p3, valid, ok, thr)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert int(a[0][3]) == -1
+
+
+def test_solve_pnp_ransac_on_card_launches_the_fit_twice(cuda):
+    """A solve on the card launches the fit kernel twice and gives the
+    result of the plain fits within 1e-5 with the same inliers."""
+    from unittest import mock
+    from splatloc_tpu_torch.match import pnp
+    R, t, p2, p3, valid, ok, thr = _fit_problem(cuda, seed=2, n=400)
+    uv = (p2.cpu().numpy() * 320 + np.array([320, 240])).astype(np.float32)
+    K = np.array([[320.0, 0, 320], [0, 320, 240], [0, 0, 1]])
+    n0 = pnp.gauss_newton_fit.launches
+    a = pnp.solve_pnp_ransac(uv, p3.cpu().numpy(), K, device=cuda)
+    assert pnp.gauss_newton_fit.launches - n0 == 2
+    with mock.patch.object(pnp, "gauss_newton_fit",
+                           pnp.gauss_newton_fit_plain):
+        b = pnp.solve_pnp_ransac(uv, p3.cpu().numpy(), K, device=cuda)
+    assert a["success"] and b["success"]
+    assert a["num_inliers"] == b["num_inliers"]
+    np.testing.assert_array_equal(a["inliers"], b["inliers"])
+    assert np.abs(a["r"] - b["r"]).max() <= 1e-5
+    assert np.abs(a["t"] - b["t"]).max() <= 1e-5

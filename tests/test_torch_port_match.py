@@ -2,6 +2,9 @@
 match.superpoint) against the JAX package on the same numpy inputs. PnP's
 random samples are JAX's own draws, computed here and injected into the
 port."""
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -305,6 +308,149 @@ def test_dlt_pose_recovers_exact_pose():
     assert bool(okj) and bool(okt[0])
     np.testing.assert_allclose(Rt[0].numpy(), np.asarray(Rj), atol=1e-4)
     np.testing.assert_allclose(tt[0].numpy(), np.asarray(tj), atol=1e-4)
+
+
+def _fit_inputs(B, M, seed=5):
+    """DLT hypotheses and normalized pairs as _solve_core makes them: every
+    50th pair invalid, and hypothesis 1 (where B > 1) a DLT that failed."""
+    uv, pts3d, _ = _pnp_problem(seed, n=M, outlier_frac=0.3 if M > 6 else 0.0)
+    p2 = _t(np.stack([(uv[:, 0] - 320) / 320, (uv[:, 1] - 240) / 320], -1))
+    p3 = _t(pts3d)
+    valid = torch.ones(M, dtype=torch.bool)
+    if M > 6:
+        valid[::50] = False
+    pri = torch.rand((B, M), generator=torch.Generator().manual_seed(seed))
+    idx = torch.topk(pri + torch.where(valid, 0.0, -10.0), 6, dim=1).indices
+    R, t, ok = tpnp._dlt_pose(p2[idx], p3[idx])
+    t = t.contiguous()
+    if B > 1:
+        R[1], t[1], ok[1] = float("nan"), float("nan"), False
+    return R, t, p2, p3, valid, ok, float(np.float32(12.0 / 320))
+
+
+def _fit_as_before(R, t, p2, p3, valid, ok, thresh, final: bool):
+    """The fits and scoring as _solve_core wrote them before they became
+    one function: 5 iterations on the loose weights and the scores, then
+    10 on the winner's strict inliers."""
+    err = tpnp._reproj_errors(R, t, p2, p3)
+    w = ((err < 3.0 * thresh) & valid).to(torch.float32)
+    R, t = tpnp._gauss_newton_refine(R, t, p2, p3, w, 5)
+    err = tpnp._reproj_errors(R, t, p2, p3)
+    inl = (err < thresh) & valid
+    score = torch.where(ok & torch.isfinite(t).all(1), inl.sum(1),
+                        torch.full_like(inl.sum(1), -1))
+    if not final:
+        return R, t, score
+    best = torch.argmax(score)
+    R, t = R[best:best + 1], t[best:best + 1]
+    err = tpnp._reproj_errors(R, t, p2, p3)
+    w = ((err < thresh) & valid).to(torch.float32)
+    R, t = tpnp._gauss_newton_refine(R, t, p2, p3, w, 10)
+    err2 = tpnp._reproj_errors(R, t, p2, p3)
+    inl2 = ((err2 < thresh) & valid)[0]
+    return R, t, inl2, inl2.sum()
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["loose", "strict"])
+@pytest.mark.parametrize("M", [6, 500])
+@pytest.mark.parametrize("B", [1, 64])
+def test_gauss_newton_fit_plain_is_the_fit_as_before(B, M, final):
+    """The plain fit (and the wrapper, which runs it on CPU tensors) gives
+    the fits and scores _solve_core computed before, bit for bit: every
+    hypothesis on its loose weights, then the winner on its strict
+    inliers."""
+    R, t, p2, p3, valid, ok, thresh = _fit_inputs(B, M)
+    want = _fit_as_before(R, t, p2, p3, valid, ok, thresh, final)
+    for fit in (tpnp.gauss_newton_fit_plain, tpnp.gauss_newton_fit):
+        got = fit(R, t, p2, p3, valid, thresh, 5, ok=ok)
+        if final:
+            got = fit(got[0], got[1], p2, p3, valid, thresh, 10,
+                      best=torch.argmax(got[2]))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    if B > 1 and not final:
+        assert int(want[2][1]) == -1 and int(want[2].max()) > 0
+
+
+_BAD_FIT_ARGS = {
+    "R_float64": lambda a: a.update(R=a["R"].double()),
+    "t_shape": lambda a: a.update(t=a["t"][:, :2].contiguous()),
+    "pts3d_not_contiguous": lambda a: a.update(
+        pts3d=a["pts3d"].T.contiguous().T),
+    "valid_uint8": lambda a: a.update(valid=a["valid"].to(torch.uint8)),
+    "ok_and_best": lambda a: a.update(best=torch.tensor(0)),
+    "neither_ok_nor_best": lambda a: a.pop("ok"),
+    "best_not_0d": lambda a: (a.pop("ok"),
+                              a.update(best=torch.tensor([0]))),
+    "other_device": lambda a: a.update(
+        valid=torch.ones(20, dtype=torch.bool, device="meta")),
+}
+
+
+@pytest.mark.parametrize("bad", list(_BAD_FIT_ARGS))
+def test_gauss_newton_fit_checks_its_inputs(bad):
+    R, t, p2, p3, valid, ok, thresh = _fit_inputs(4, 20)
+    args = dict(R=R, t=t, pts2d_n=p2, pts3d=p3, valid=valid, ok=ok)
+    _BAD_FIT_ARGS[bad](args)
+    with pytest.raises(ValueError):
+        tpnp.gauss_newton_fit(**args, thresh=thresh, iters=2)
+
+
+class _CudaTagged(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: the fit's wrapper takes the
+    card's path, while every other operation runs on the CPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_solve_core_on_cuda_launches_the_kernel_twice(monkeypatch):
+    """On CUDA tensors (tagged, with the kernel's library mocked) the
+    RANSAC's two fits are two launches, the hypotheses' with no index and
+    the loose band, the winner's with the argmax's index, and the plain
+    fit and its jacfwd never run."""
+    calls = []
+
+    def launch(*args):
+        calls.append(args)
+        return 0
+    lib = types.SimpleNamespace(pnp_refine_launch=launch)
+    monkeypatch.setattr(tpnp.build, "load", {"pnp_refine": lib}.__getitem__)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7))
+
+    def never(*a, **k):
+        raise AssertionError("the plain fit ran on a CUDA tensor")
+    for name in ("gauss_newton_fit_plain", "_gauss_newton_refine", "_jac"):
+        monkeypatch.setattr(tpnp, name, never)
+    _, _, p2, p3, valid, _, thresh = _fit_inputs(1, 50)
+    pri = torch.rand((16, 50), generator=torch.Generator().manual_seed(0))
+
+    def tag(x):
+        return torch.Tensor._make_subclass(_CudaTagged, x)
+    before = tpnp.gauss_newton_fit.launches
+    R, t, inl, n, best = tpnp._solve_core(tag(p2), tag(p3), tag(valid),
+                                          tag(pri), thresh, 6, 10)
+    assert tpnp.gauss_newton_fit.launches - before == 2
+    assert [type(x) for x in (R, t, inl, n, best)] == [_CudaTagged] * 5
+    assert (tuple(R.shape), tuple(t.shape), tuple(inl.shape)) == (
+        (3, 3), (3,), (50,))
+    hyp, fin = calls
+    # (R, t, ok, best, n_poses, pts2d, pts3d, valid, n_pairs,
+    #  weight_thresh, thresh, iters, R_out, t_out, score, inliers, count,
+    #  stream)
+    assert hyp[2] is not None and hyp[3] is None and fin[3] is not None
+    assert hyp[4] == fin[4] == 16 and hyp[8] == fin[8] == 50
+    assert (hyp[9], hyp[10], hyp[11]) == (3.0 * thresh, thresh, 5)
+    assert (fin[9], fin[10], fin[11]) == (thresh, thresh, 10)
+    assert hyp[14] is not None and hyp[15] is None
+    assert fin[14] is None and fin[15] is not None and fin[16] is not None
+    assert hyp[17] == fin[17] == 7
 
 
 # --------------------------------------------------------------------------
